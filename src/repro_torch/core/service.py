@@ -28,7 +28,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is visible: the engine runs on the GPU unless "
+            "no CUDA device is visible: the port runs on the GPU unless "
             "the caller passes device=\"cpu\"")
     return dev
 

@@ -6,6 +6,10 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <build dir>/<stem>-<hash>.so <stem>.cu
 
+`CudaKernel` binds one entry point of such a library and counts its
+launches; `reset_launches()` / `launches()` read every kernel of the
+port at once.
+
 The library name carries a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused. All sources
 that need a build are compiled in parallel, one `nvcc` each. The build
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -89,3 +95,55 @@ def load(stem: str) -> ctypes.CDLL:
     """The loaded library built from `<stem>.cu` (built first if
     needed)."""
     return ctypes.CDLL(str(build_all()[stem]))
+
+
+#: every CudaKernel constructed, in construction order
+_KERNELS = []
+
+
+class CudaKernel:
+    """One entry point of a ctypes library: built and bound at first
+    launch, with a count of its launches.
+
+    `entry` takes `argtypes` followed by the CUDA stream and returns a
+    cudaError_t as int; `errors` names the library's
+    `const char* f(int)` that spells such a code."""
+
+    def __init__(self, stem: str, entry: str, argtypes, errors: str):
+        self.stem, self.entry, self.argtypes = stem, entry, argtypes
+        self.errors = errors
+        self.launches = 0
+        self._lib = self._fn = self._err = None
+        _KERNELS.append(self)
+
+    def _bind(self):
+        if self._fn is None:
+            self._lib = load(self.stem)
+            fn = getattr(self._lib, self.entry)
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = getattr(self._lib, self.errors)
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args):
+        code = self._bind()(*args, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"{self.entry} failed to launch: "
+                               f"{self._err(code).decode()} "
+                               f"(cudaError {code})")
+        self.launches += 1
+
+
+def reset_launches(kernels=None) -> None:
+    """Set the launch count of `kernels` (default: every kernel) to 0."""
+    for k in _KERNELS if kernels is None else kernels:
+        k.launches = 0
+
+
+def launches(kernels=None) -> dict:
+    """{library stem: launches since the last reset} over `kernels`
+    (default: every kernel constructed so far)."""
+    return {k.stem: k.launches
+            for k in (_KERNELS if kernels is None else kernels)}

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.fp32 import f32
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check
 from repro_torch.kernels.proximity import ref
 
 #: the histogram bound the kernels are compiled for
@@ -27,51 +28,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-class CudaKernel:
-    """One kernel of a ctypes library: built and bound at first launch,
-    with a count of its launches."""
-
-    def __init__(self, stem: str, entry: str, argtypes):
-        self.stem, self.entry, self.argtypes = stem, entry, argtypes
-        self.launches = 0
-        self._fn = None
-        self._lib = None
-
-    def _bind(self):
-        if self._fn is None:
-            self._lib = build.load(self.stem)
-            fn = getattr(self._lib, self.entry)
-            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            err = self._lib.proximity_error_string
-            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-            self._fn = fn
-        return self._fn
-
-    def launch(self, *args):
-        code = self._bind()(*args, torch.cuda.current_stream().cuda_stream)
-        if code != 0:
-            msg = self._lib.proximity_error_string(code).decode()
-            raise RuntimeError(f"{self.entry} failed to launch: {msg} "
-                               f"(cudaError {code})")
-        self.launches += 1
-
-
-grid_kernel = CudaKernel(
+grid_kernel = build.CudaKernel(
     "proximity_grid", "grid_lp_counts_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P])
-dense_kernel = CudaKernel(
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    errors="proximity_error_string")
+dense_kernel = build.CudaKernel(
     "proximity_dense", "dense_lp_counts_launch",
-    [_P, _P, _P, _I, _I, _F, _F, _P, _P])
+    [_P, _P, _P, _I, _I, _F, _F, _P], errors="proximity_error_string")
 KERNELS = (grid_kernel, dense_kernel)
 
 
 def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or t.device != device or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
-            f"on {t.device}" + ("" if t.is_contiguous() else " (strided)"))
+    check(name, t, (dtype,), shape, device)
 
 
 def _check_common(pos, lp, sender_mask, n_lp: int):
@@ -137,11 +105,10 @@ def proximity_lp_counts(pos, lp, sender_mask, n_lp: int, area: float,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in KERNELS:
-        k.launches = 0
+    """Set both proximity kernels' launch counts to 0."""
+    build.reset_launches(KERNELS)
 
 
 def launches() -> dict:
     """{library stem: launches since the last reset}."""
-    return {k.stem: k.launches for k in KERNELS}
+    return build.launches(KERNELS)

@@ -396,9 +396,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
         "assert 'repro_torch.kernels.proximity.ops' in sys.modules\n"
+        "assert 'repro_torch.launch.serve' in sys.modules\n"
         "print(bad)\n")
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     out = subprocess.run([sys.executable, "-c", code], check=True,
