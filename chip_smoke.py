@@ -6,7 +6,9 @@ Phases, each of which raises on failure (so the script exits non-zero
 and prints no result):
 
   1. card     the GPU's name and power limit (nvidia-smi), torch, CUDA
-  2. build    the five kernels built from the checkout's sources
+  2. build    the five kernels built from the checkout's sources, with
+              nvcc's -Xptxas -v figures (registers, shared memory,
+              spills) of every kernel
   3. kernels  each kernel held against its plain PyTorch version on the
               card (exact integer counts for the proximity kernels; ids
               and counts exact, top_p to 1e-5 for the MoE gate; 1e-5 in
@@ -14,7 +16,9 @@ and prints no result):
               at the shapes the main paths give it and at one more;
               CUDA-event times of the kernel and the plain version, the
               kernel's device time (torch.profiler), the bound and, for
-              the attention kernels, PyTorch's fused attention
+              the attention kernels, PyTorch's fused attention, both as
+              a call (library_ms, beside ms) and on the device
+              (library_device_ms, beside kernel_device_ms)
   4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
@@ -64,6 +68,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,10 +136,10 @@ def time_ms(fn, reps: int = 20, batch: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
-    """Duration on the device of the CUDA kernels whose names hold
-    `kernel`, per call of fn(), over `calls` calls (torch.profiler), in
-    ms."""
+def device_profile(fn, kernel=None, calls: int = 20):
+    """(ms, kernels per call, names) of the CUDA kernels whose names hold
+    `kernel` (every kernel when None), per call of fn(), over `calls`
+    calls (torch.profiler); ms is None when none ran."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -143,10 +148,18 @@ def device_ms(fn, kernel: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(spans) / calls / 1e3 if spans else None
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and (kernel is None or kernel in e.name)]
+    ms = sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
+    return (ms if ev else None), len(ev) / calls, sorted(
+        {e.name[:80] for e in ev})
+
+
+def device_ms(fn, kernel=None, calls: int = 20):
+    """Duration on the device of the CUDA kernels whose names hold
+    `kernel` (every kernel when None), per call of fn(), in ms."""
+    return device_profile(fn, kernel, calls)[0]
 
 
 def card():
@@ -160,12 +173,52 @@ def card():
     return line
 
 
+def _kernel_name(mangled: str) -> str:
+    """`flash_decode_kernel<bf16,64>` from an Itanium-mangled name: the
+    first length-prefixed identifier ending in "kernel", with its
+    template arguments (types float / bf16, integer literals)."""
+    i, name, rest = 0, mangled, ""
+    while i < len(mangled):
+        if not mangled[i].isdigit():
+            i += 1
+            continue
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        ident, i = mangled[j:j + n], j + n
+        if ident.endswith("kernel"):
+            name, rest = ident, mangled[i:]
+            break
+    args, k = [], 1
+    while rest.startswith("I") and k < len(rest) and rest[k] != "E":
+        if rest[k] == "f":
+            args.append("f32")
+            k += 1
+        elif rest.startswith("13__nv_bfloat16", k):
+            args.append("bf16")
+            k += len("13__nv_bfloat16")
+        elif rest[k] == "L":
+            end = rest.index("E", k)
+            args.append(rest[k + 2:end])
+            k = end + 1
+        else:
+            break
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def build():
     from repro_torch.kernels import build as kbuild
     t0 = time.perf_counter()
     libs = kbuild.build_all()
+    ptxas = {stem: [{"kernel": _kernel_name(r["function"]),
+                     **{k: r.get(k) for k in ("registers", "smem_bytes",
+                                              "spill_stores",
+                                              "spill_loads")}}
+                    for r in kbuild.ptxas_report(lib)]
+             for stem, lib in sorted(libs.items())}
     emit(phase="build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.name) for p in libs.values()))
+         libraries=sorted(str(p.name) for p in libs.values()), ptxas=ptxas)
 
 
 def world(n: int, area: float, rng: float, seed: int, dev):
@@ -300,6 +353,8 @@ def check_flash_attention(B, H, Hkv, S, D, dtype, dev):
     ops_n = 4 * D * pairs  # QK^T and PV, a multiply and an add each
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
     call = lambda: ops.flash_attention(q, k, v, True)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
     return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": True,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
             "ms": time_ms(call),
@@ -307,8 +362,7 @@ def check_flash_attention(B, H, Hkv, S, D, dtype, dev):
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(
                 q, k, v, True), batch=1),
             **bound(nbytes, ops_n, peak),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))}
+            "library_ms": time_ms(lib), "library_device_ms": device_ms(lib)}
 
 
 def check_flash_decode(B, H, Hkv, S, D, pos, dtype, dev):
@@ -332,15 +386,17 @@ def check_flash_decode(B, H, Hkv, S, D, pos, dtype, dev):
     qs = q[:, :, None]
     ks, vs = (c[:, :n].transpose(1, 2) for c in (kc, vc))
     call = lambda: ops.flash_decode(q, kc, vc, pos)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, enable_gqa=True)
+    dev_ms, per_call, names = device_profile(call)  # every kernel it runs
     return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "pos": pos,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "ms": time_ms(call),
-            "kernel_device_ms": device_ms(call, "decode_"),
+            "ms": time_ms(call), "kernel_device_ms": dev_ms,
+            "device_kernels_per_call": per_call, "device_kernels": names,
             "plain_ms": time_ms(lambda: ref.flash_decode_plain(
                 q, kc, vc, pos), batch=1),
             **bound(nbytes, ops_n, peak),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, enable_gqa=True))}
+            "library_ms": time_ms(lib), "library_device_ms": device_ms(lib)}
 
 
 def check_lm_kernels(dev):
@@ -866,6 +922,8 @@ def main():
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
+            **{f: main_shape.get(f) for f in ("kernel_device_ms",
+                                              "library_device_ms")},
             "shapes": shapes[k]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

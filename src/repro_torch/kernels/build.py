@@ -4,23 +4,28 @@ Each `csrc/*.cu` source is compiled by `nvcc` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build dir>/<stem>-<hash>.so <stem>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<stem>-<hash>.so
+         <stem>.cu
 
 `CudaKernel` binds one entry point of such a library and counts its
 launches; `reset_launches()` / `launches()` read every kernel of the
 port at once.
 
-The library name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. All sources
-that need a build are compiled in parallel, one `nvcc` each. The build
-directory is `build/repro_torch/` at the root of the checkout (listed in
-`.gitignore`), or `$REPRO_TORCH_BUILD_DIR` when set.
+The library name carries a hash of the source, of every header beside
+it in `csrc/`, and of the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. All sources that need a build
+are compiled in parallel, one `nvcc` each. `-Xptxas -v` makes nvcc
+report each kernel's registers, shared memory and spills; the report is
+kept beside the library (`<library>.log`) and read by `ptxas_report`.
+The build directory is `build/repro_torch/` at the root of the checkout
+(listed in `.gitignore`), or `$REPRO_TORCH_BUILD_DIR` when set.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,7 +34,9 @@ from pathlib import Path
 import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: headers a source may include from its own csrc/ directory
+HEADER_GLOBS = ("*.cuh", "*.h")
 
 _PKG = Path(__file__).resolve().parent
 
@@ -55,9 +62,45 @@ def nvcc() -> str:
     return found
 
 
+def headers(src: Path) -> list:
+    """The headers beside `src` in its csrc/ directory, sorted."""
+    return sorted(p for pat in HEADER_GLOBS for p in src.parent.glob(pat))
+
+
 def library_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in headers(src):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(lib: Path) -> list:
+    """Per kernel of a built library, from nvcc's `-Xptxas -v` report:
+    {"function", "registers", "smem_bytes", "spill_stores",
+    "spill_loads"} (the mangled name; empty if no report was kept)."""
+    log = Path(str(lib) + ".log")
+    if not log.exists():
+        return []
+    out, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def build_all() -> dict:
@@ -82,6 +125,7 @@ def build_all() -> dict:
         for stem, lib, tmp, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode == 0:
+                Path(str(lib) + ".log").write_text(log)
                 os.replace(tmp, lib)
             else:
                 os.unlink(tmp)

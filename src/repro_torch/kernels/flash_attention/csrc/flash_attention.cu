@@ -11,34 +11,66 @@
 // causal) the function must move q, k, v and out once, ~75.5 MB (22.5 us
 // at 3.35 TB/s), against 17.2 GFLOP of causal QK^T and PV (17.4 us at
 // 989 TFLOP/s bf16): the bytes set it, but only a kernel that keeps the
-// tensor cores busy gets near either.
+// tensor cores busy and the loads in flight gets near either.
 //
-// Design: one block of 128 threads per (64-row Q tile, batch x query
-// head); grid (ceil(S / 64), B * H). A loop over 64-row K/V tiles takes
-// the place of the TPU's sequential kv grid dimension, up to the causal
-// bound: tiles wholly above the diagonal are never loaded (the Pallas
-// kernel's pl.when). Query head h reads KV head h / (H / Hkv) directly,
-// so the group-expanded K/V is never built. Ragged S and Skv are masked
-// at the edge. Masked scores are -1e30 and the row is divided by
-// max(l, 1e-30), as in the Pallas kernel.
+// Semantics of every path: scores scaled by the caller's float32
+// D^-0.5, top-left causal alignment, Skv != S allowed with ragged S and
+// Skv masked at the edge, masked scores at -1e30, each row divided by
+// max(l, 1e-30). A loop over 64-row K/V tiles takes the place of the
+// TPU's sequential kv grid dimension, up to the causal bound: tiles
+// wholly above the diagonal are never loaded (the Pallas kernel's
+// pl.when). Query head h reads KV head h / (H / Hkv) in place, so the
+// group-expanded K/V is never built.
 //
-// bfloat16 (the serving path): each warp owns 16 query rows and runs
-// QK^T and PV on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). The Q fragment stays in registers for the whole sweep;
-// K and V tiles are staged in shared memory with 16-byte loads. The f32
-// score accumulator of QK^T is laid out as the A operand of PV, so P
-// never leaves registers: it is rounded to bf16 there, which is the
-// Pallas kernel's `p.astype(v_ref.dtype)`. Row max and sum are shared
-// by the four lanes of a row with two shuffles.
+// bfloat16, D 64 and 128 (the serving path): persistent,
+// warp-specialised blocks, one per resident slot (two an SM at D 64).
+// One producer warp issues every load by TMA (cp.async.bulk.tensor,
+// 128-byte swizzle): the Q tiles of a work item into one of two Q slots,
+// and 64-row K and V tiles into a ring of 4 (D 64) or 3 (D 128) stages
+// guarded by full / empty mbarrier pairs, running ahead across items.
+// One or two consumer warpgroups each own 64 query rows: S = Q K^T by
+// wgmma m64n64k16 with Q and K from shared memory; the online softmax in
+// registers with one ex2.approx a score, the scale * log2(e) folded into
+// its argument, masking only the diagonal and ragged tiles; P rounded to
+// bf16 in registers (the Pallas kernel's `p.astype(v_ref.dtype)`) and
+// fed as the register A operand of the PV wgmma, with V's (keys, D)
+// row-major tile as the B operand under the transpose bit. The output
+// tile goes through the warpgroup's finished Q slot and one TMA store.
+// When the group G = H / Hkv is even the two warpgroups of a block take
+// two query heads of one KV head at the same q tile, so each K/V tile
+// reaches shared memory once for both. Work items run heaviest causal q
+// tile first, dealt to the blocks in alternating order so that their
+// total work evens out, and the head pairs of one KV head are adjacent,
+// so their K/V tiles stay hot in L2. The tensor maps are encoded on the
+// host per call (sm90.cuh).
 //
-// float32: mma.sync would round the inputs to tf32, so the f32 kernel
-// stays on scalar FMAs from shared memory: two threads a query row, each
-// scoring 32 of the tile's keys and keeping half of the row's D
-// accumulators. wgmma and TMA are later work.
+// What bounds it at the prefill shape: latency, not a unit's rate. Each
+// warpgroup runs QK^T, softmax and PV of a tile back to back; the two
+// blocks of an SM overlap four such chains, which the registers (96 a
+// thread at two blocks an SM) leave no room to deepen: issuing tile
+// j + 1's QK^T with tile j's PV, or overlapping the softmax with the PV
+// (FA3's pipelining), needs P, S and O live at once, and at 96 registers
+// ptxas serialises the wgmmas and spills; at one block an SM the lost
+// occupancy costs more. An FMA-pipe polynomial for part of the
+// exponentials (the MUFU unit's rate equals the tensor cores' at D 64)
+// made it slower, so the exponential's unit is not the limit either.
+//
+// bfloat16, D 16 and 32 (the smoke config's heads only): the wgmma
+// tiling wants 64-column swizzled boxes, so these keep mma.sync m16n8k16
+// per warp of 16 query rows with synchronously staged tiles; P stays in
+// registers as PV's A operand.
+//
+// float32: mma and wgmma would round the inputs to tf32, so the f32
+// kernel stays on scalar FMAs from shared memory: two threads a query
+// row, each scoring 32 of the tile's keys and keeping half of the row's
+// D accumulators.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
+
 
 namespace {
 
@@ -181,7 +213,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
+// bfloat16, D 16 and 32: tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -392,14 +424,360 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16, D 64 and 128: TMA ring, wgmma, one producer warp
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int TILE_BYTES = 64 * 128;  // one (64 rows, 64 bf16) swizzled box
+
+template <int D, int NWG>
+struct Wg {
+  static constexpr int CB = D / 64;            // 64-column boxes a row
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int Q_BYTES = NWG * CB * TILE_BYTES;  // two Q slots
+  static constexpr int KV_BYTES = 2 * CB * TILE_BYTES;   // a stage: K, V
+  static constexpr int BAR_BYTES = 8 * (2 * STAGES + 4);
+  // + 1024: the dynamic buffer is aligned up to the swizzle atom
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * KV_BYTES + BAR_BYTES;
+  static constexpr int THREADS = NWG * 128 + 32;
+  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;
+};
+
+// Persistent: one block per resident slot walks the n_qt * n_hg work
+// items in rounds of gridDim.x, item w being q tile n_qt - 1 - w / n_hg
+// (heaviest causal tile first) of head group w % n_hg (NWG query heads
+// of one KV head; neighbouring groups share KV heads). The producer runs
+// ahead across items: the next item's Q goes to the other of two Q
+// slots and its K/V into the same ring while the consumers finish the
+// current one, whose output leaves through its own Q slot by TMA store.
+template <int D, int NWG>
+__global__ void __launch_bounds__(Wg<D, NWG>::THREADS,
+                                  Wg<D, NWG>::MIN_BLOCKS)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap to, int H,
+                             int Hkv, int Skv, int causal, float scale_log2,
+                             int n_qt, int n_hg) {
+  using C = Wg<D, NWG>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;  // two slots of Q_BYTES
+  const uint32_t ring = base + 2 * C::Q_BYTES;
+  const uint32_t bars = ring + ST * C::KV_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  auto q_full = [&](int s) { return bars + 8 * (2 * ST + s); };
+  auto q_empty = [&](int s) { return bars + 8 * (2 * ST + 2 + s); };
+  const int total = n_qt * n_hg;
+  const int kv_tiles = (Skv + 63) / 64;
+  // this block's r-th item: rounds of gridDim.x items, every other round
+  // dealt in reverse, so that the heavy and light causal tiles even out
+  auto item = [&](int r) {
+    const int b = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return r * static_cast<int>(gridDim.x) + b;
+  };
+  const int G = H / Hkv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), NWG * 4);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(q_full(s), 1);
+      sm90::mbar_init(q_empty(s), NWG);  // one arrival a warpgroup
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&tq);
+      sm90::tma_prefetch_map(&tk);
+      sm90::tma_prefetch_map(&tv);
+      int it = 0, qi = 0;  // K/V tiles and items so far
+      for (int r = 0; item(r) < total; ++r, ++qi) {
+        const int w = item(r);
+        const int qt = n_qt - 1 - w / n_hg;
+        const int bh0 = (w % n_hg) * NWG;  // b * H + first query head
+        const int bkv = (bh0 / H) * Hkv + (bh0 % H) / G;
+        const int n_kt = causal ? min(kv_tiles, qt + 1) : kv_tiles;
+        const int qs = qi & 1;
+        sm90::mbar_wait(q_empty(qs), ((qi >> 1) & 1) ^ 1);
+        sm90::mbar_arrive_tx(q_full(qs), C::Q_BYTES);
+        for (int h = 0; h < NWG; ++h)
+          for (int c = 0; c < C::CB; ++c)
+            sm90::tma_load_3d(q_s + qs * C::Q_BYTES +
+                                  (h * C::CB + c) * TILE_BYTES,
+                              &tq, q_full(qs), c * 64, qt * 64, bh0 + h);
+        for (int kt = 0; kt < n_kt; ++kt, ++it) {
+          const int s = it % ST;
+          sm90::mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
+          sm90::mbar_arrive_tx(full(s), C::KV_BYTES);
+          const uint32_t st = ring + s * C::KV_BYTES;
+          for (int c = 0; c < C::CB; ++c) {
+            sm90::tma_load_3d(st + c * TILE_BYTES, &tk, full(s), c * 64,
+                              kt * 64, bkv);
+            sm90::tma_load_3d(st + (C::CB + c) * TILE_BYTES, &tv, full(s),
+                              c * 64, kt * 64, bkv);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 rows of query head bh0 + wg of each item
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  int it = 0, qi = 0;
+  for (int r = 0; item(r) < total; ++r, ++qi) {
+    const int w = item(r);
+    const int qt = n_qt - 1 - w / n_hg;
+    const int bh0 = (w % n_hg) * NWG;
+    const int n_kt = causal ? min(kv_tiles, qt + 1) : kv_tiles;
+    const int qpos0 = qt * 64 + (warp & 3) * 16 + g, qpos1 = qpos0 + 8;
+    const int qs = qi & 1;
+    const uint32_t qa = q_s + qs * C::Q_BYTES + wg * C::CB * TILE_BYTES;
+
+    // running max in raw score units (the scale is folded into exp2)
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // S = Q K^T, 64 x 64: sc[4j + 2u + e] is (row g + 8u, key 8j + 2t + e)
+    float sc[32];
+    uint32_t pa[4][4];  // P as the A fragments of PV's four key chunks
+
+    // issue S = Q K^T for the K tile at `st` (not committed)
+    auto issue_s = [&](uint32_t st) {
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const uint32_t off = (k / 4) * TILE_BYTES + (k % 4) * 32;
+        sm90::wgmma_ss_m64n64k16(sc, sm90::desc_sw128(qa + off, 16, 1024),
+                                 sm90::desc_sw128(st + off, 16, 1024), k > 0);
+      }
+    };
+    // issue O += P V for the V tile of the stage at `st`: (keys, D) is
+    // the MN-major B operand; 16 keys a step are 2 KB of the swizzled
+    // tile, the second 64 columns 8 KB on
+    auto issue_pv = [&](uint32_t st) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const uint64_t dv = sm90::desc_sw128(
+            st + C::CB * TILE_BYTES + kc * 2048, TILE_BYTES, 1024);
+        if constexpr (D == 64)
+          sm90::wgmma_rs_m64n64k16_tb(o, pa[kc], dv);
+        else
+          sm90::wgmma_rs_m64n128k16_tb(o, pa[kc], dv);
+      }
+    };
+    // tile kt's softmax on sc, in place: masked scores, the new running
+    // max, P = 2^(scale_log2 (s - m)) and l; returns the rescale factors
+    // of the rows' earlier sums in corr0, corr1
+    float corr0, corr1;
+    auto softmax = [&](int kt) {
+      const int k0 = kt * 64;
+      if (k0 + 64 > Skv || (causal && k0 + 63 > qt * 64)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t + e;
+            if (kpos >= Skv || (causal && kpos > qpos0))
+              sc[4 * j + e] = NEG_INF;
+            if (kpos >= Skv || (causal && kpos > qpos1))
+              sc[4 * j + 2 + e] = NEG_INF;
+          }
+        }
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      corr0 = sm90::exp2_ftz((m0 - mn0) * scale_log2);
+      corr1 = sm90::exp2_ftz((m1 - mn1) * scale_log2);
+      const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+      m0 = mn0;
+      m1 = mn1;
+      // l stays a per-lane partial sum (corr is the same on the row's
+      // four lanes); the lanes are summed once, after the sweep
+      l0 *= corr0;
+      l1 *= corr1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fmaf(sc[4 * j + e], scale_log2, e < 2 ? b0 : b1);
+          sc[4 * j + e] = sm90::exp2_ftz(x);
+        }
+        l0 += sc[4 * j] + sc[4 * j + 1];
+        l1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+    };
+    // O *= corr, then P rounded to bf16 into PV's A fragments: key chunk
+    // j / 2, rows g, g + 8 by keys 2t, 2t + 8
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr0;
+        o[4 * j + 1] *= corr0;
+        o[4 * j + 2] *= corr1;
+        o[4 * j + 3] *= corr1;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pa[j / 2][2 * (j % 2)] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+    auto stage = [&](int kt) { return (it + kt) % ST; };
+    auto parity = [&](int kt) { return ((it + kt) / ST) & 1; };
+
+    sm90::mbar_wait(q_full(qs), (qi >> 1) & 1);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const uint32_t st = ring + stage(kt) * C::KV_BYTES;
+      sm90::mbar_wait(full(stage(kt)), parity(kt));
+      sm90::wgmma_fence();
+      issue_s(st);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      softmax(kt);
+      rescale_and_pack();
+      sm90::wgmma_fence();
+      issue_pv(st);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty(stage(kt)));  // warp done
+    }
+    it += n_kt;
+
+    // O / l, rounded to bf16, into this warpgroup's (now free) part of
+    // the Q slot in the swizzled layout of the output map, then out by
+    // one TMA store (rows past S are not written)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const int r0 = (warp & 3) * 16 + g;  // rows r0, r0 + 8 of the tile
+    unsigned char* qtile = smem_raw + (qa - sm90::smem_addr(smem_raw));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      // 16-byte chunk j % 8 of a 128-byte row, XOR-swizzled by row % 8
+      unsigned char* cb = qtile + (j / 8) * TILE_BYTES + 4 * t;
+      const int ch0 = ((j % 8) ^ (r0 % 8)) * 16;
+      *reinterpret_cast<uint32_t*>(cb + r0 * 128 + ch0) =
+          pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+      *reinterpret_cast<uint32_t*>(cb + (r0 + 8) * 128 + ch0) =
+          pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+    }
+    sm90::fence_async_smem();
+    sm90::named_barrier(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0) {
+      for (int c = 0; c < C::CB; ++c)
+        sm90::tma_store_3d(&to, qa + c * TILE_BYTES, c * 64, qt * 64,
+                           bh0 + wg);
+      sm90::tma_store_commit();
+      sm90::tma_store_wait_read();
+      sm90::mbar_arrive(q_empty(qs));  // this warpgroup is done with it
+    }
+  }
+}
+
+template <int D, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int H, int Hkv, int S, int Skv, int causal,
+                 float scale, cudaStream_t s) {
+  using C = Wg<D, NWG>;
+  CUtensorMap mq, mk, mv, mo;
+  int e = sm90::make_map_bf16_3d(&mq, q, D, S, static_cast<uint64_t>(B) * H,
+                                 64);
+  if (e == 0)
+    e = sm90::make_map_bf16_3d(&mo, out, D, S, static_cast<uint64_t>(B) * H,
+                               64);
+  if (e == 0)
+    e = sm90::make_map_bf16_3d(&mk, k, D, Skv,
+                               static_cast<uint64_t>(B) * Hkv, 64);
+  if (e == 0)
+    e = sm90::make_map_bf16_3d(&mv, v, D, Skv,
+                               static_cast<uint64_t>(B) * Hkv, 64);
+  if (e != 0) return e;
+  auto kern = flash_attention_wgmma_kernel<D, NWG>;
+  // per device: the opt-in to the shared memory and the resident blocks
+  static int slots[64] = {0};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (slots[dev] == 0) {
+    ce = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    int sms = 0, per_sm = 0;
+    if (ce == cudaSuccess)
+      ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (ce == cudaSuccess)
+      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                         C::THREADS, C::SMEM);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    slots[dev] = sms * per_sm;
+  }
+  const int n_qt = (S + 63) / 64;
+  const int n_hg = B * H / NWG;
+  const int64_t total = static_cast<int64_t>(n_qt) * n_hg;
+  if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(
+      total < slots[dev] ? total : static_cast<int64_t>(slots[dev]));
+  kern<<<blocks, C::THREADS, C::SMEM, s>>>(mq, mk, mv, mo, H, Hkv, Skv,
+                                           causal, scale * LOG2E, n_qt,
+                                           n_hg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D 64 and 128 on wgmma, two query heads a block when the group is
+// even, else one; D 16 and 32 on mma.sync
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int H, int Hkv, int S, int Skv, int causal,
+                float scale, cudaStream_t s) {
+  if constexpr (D < 64) {
+    return launch_mma<D>(q, k, v, out, B, H, Hkv, S, Skv, causal, scale, s);
+  } else {
+    if ((H / Hkv) % 2 == 0)
+      return launch_wgmma<D, 2>(q, k, v, out, B, H, Hkv, S, Skv, causal,
+                                scale, s);
+    return launch_wgmma<D, 1>(q, k, v, out, B, H, Hkv, S, Skv, causal,
+                              scale, s);
+  }
+}
+
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Hkv, int S, int Skv, int D, int causal, float scale,
            int dtype, cudaStream_t s) {
-#define FA_CASE(DD)                                                     \
-  case DD:                                                              \
-    return dtype == 1 ? launch_mma<DD>(q, k, v, out, B, H, Hkv, S, Skv, \
-                                       causal, scale, s)                \
-                      : launch_d<DD>(q, k, v, out, B, H, Hkv, S, Skv,   \
+#define FA_CASE(DD)                                                      \
+  case DD:                                                               \
+    return dtype == 1 ? launch_bf16<DD>(q, k, v, out, B, H, Hkv, S, Skv, \
+                                        causal, scale, s)                \
+                      : launch_d<DD>(q, k, v, out, B, H, Hkv, S, Skv,    \
                                      causal, scale, s)
   switch (D) {
     FA_CASE(16);

@@ -3,9 +3,10 @@
 
 On a CUDA tensor it checks its inputs, allocates the output with
 `torch.empty`, launches the kernel on the current stream and counts the
-launch; a launch CUDA refuses raises. On a CPU tensor it runs the
-plain version (`ref.py`), and only then: there is no fallback from the
-card to the plain code.
+launch; a launch CUDA refuses raises. In bf16 at D 64 and 128 the
+kernel's TMA tensor maps are encoded on the host inside the launch. On
+a CPU tensor it runs the plain version (`ref.py`), and only then: there
+is no fallback from the card to the plain code.
 """
 from __future__ import annotations
 
@@ -49,6 +50,10 @@ def flash_attention(q, k, v, causal: bool = True):
     check("q", q, DTYPES, (B, H, S, D), dev)
     check("k", k, (q.dtype,), (B, Hkv, Skv, D), dev)
     check("v", v, (q.dtype,), (B, Hkv, Skv, D), dev)
+    if q.dtype == torch.bfloat16 and D >= 64 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bf16 kernel loads its tiles "
+                         "by TMA, which needs 16-byte aligned tensors")
     out = torch.empty_like(q)
     kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, H, Hkv, S, Skv, D, int(causal), DTYPES[q.dtype],

@@ -192,6 +192,42 @@ def test_flash_decode_cpu_wrapper_and_no_fallback():
         fd_ops.flash_decode(q.to("meta"), kc.to("meta"), vc.to("meta"), 6)
 
 
+@pytest.mark.parametrize("B,Hkv,pos", [
+    (16, 4, 543),        # decode, main path: 9 splits of one tile
+    (1, 1, 0), (2, 2, 63), (2, 2, 64), (1, 1, 32767), (1, 4, 10000),
+    (64, 8, 4095), (3, 1, 999)])
+def test_flash_decode_split_plan(B, Hkv, pos):
+    """Every tile 0..pos // 64 lies in exactly one split, none is empty,
+    and the grid stays within SPLIT_BLOCKS blocks (one split a pair at
+    the least) and MAX_SPLITS splits a pair."""
+    n_split, tps = fd_ops.split_plan(B, Hkv, pos)
+    n_tiles = pos // fd_ops.CHUNK + 1
+    assert 1 <= n_split <= fd_ops.MAX_SPLITS and tps >= 1
+    assert (n_split - 1) * tps < n_tiles <= n_split * tps
+    assert B * Hkv * n_split <= max(fd_ops.SPLIT_BLOCKS, B * Hkv)
+    if (B, Hkv, pos) == (16, 4, 543):
+        assert (n_split, tps) == (9, 1)
+    assert fd_ops.workspace_floats(B, Hkv, 64, n_split) == (
+        0 if n_split == 1 else B * Hkv * n_split * fd_ops.MAX_G * 66)
+
+
+def test_flash_decode_workspace_is_reused_and_grows(monkeypatch):
+    """One workspace a device: reused while it is large enough, replaced
+    by a larger one (tickets zeroed) when a larger shape arrives."""
+    monkeypatch.setattr(fd_ops, "_WORKSPACE", {})
+    dev = torch.device("cpu")
+    part, tick = fd_ops.workspace(dev, 100, 8)
+    assert part.dtype == torch.float32 and part.numel() == 100
+    assert tick.dtype == torch.int32 and not tick.any()
+    assert tick.numel() == 8
+    again = fd_ops.workspace(dev, 50, 4)
+    assert again[0] is part and again[1] is tick
+    grown = fd_ops.workspace(dev, 200, 16)
+    assert grown[0].numel() == 200 and grown[1].numel() == 16
+    assert grown[0] is not part and not grown[1].any()
+    assert fd_ops.workspace(dev, 0, 1)[0] is grown[0]
+
+
 # --- on the card ---------------------------------------------------------
 
 
@@ -253,6 +289,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fa_ops.flash_attention(q, q[:, :3].contiguous(), q[:, :3].contiguous())
     with pytest.raises(ValueError, match="bfloat16"):
         fa_ops.flash_attention(q, q.bfloat16(), q.bfloat16())
+    # contiguous but 2 bytes off a 16-byte boundary: TMA cannot load it
+    flat = torch.zeros(4 * 8 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    qb = flat[1:].view(1, 4, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention(qb, qb[:, :2].contiguous(),
+                               qb[:, :2].contiguous())
     qd = torch.zeros((1, 4, 64), device=cuda)
     kc = torch.zeros((1, 10, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="pos"):
@@ -261,3 +303,113 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fd_ops.flash_decode(torch.zeros((1, 18, 64), device=cuda),
                             torch.zeros((1, 10, 1, 64), device=cuda),
                             torch.zeros((1, 10, 1, 64), device=cuda), 3)
+
+
+def _fa_case(cuda, B, H, Hkv, S, Skv, D, causal, seed=1):
+    q = _t(_rand(seed, (B, H, S, D)), "bfloat16").to(cuda)
+    k = _t(_rand(seed + 1, (B, Hkv, Skv, D)), "bfloat16").to(cuda)
+    v = _t(_rand(seed + 2, (B, Hkv, Skv, D)), "bfloat16").to(cuda)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Skv,causal", [
+    (1, 1, True), (63, 63, True), (65, 65, True), (200, 200, True),
+    (1, 200, False), (63, 65, False), (200, 1, False),
+    (200, 63, True), (200, 65, True), (65, 1, True)])   # causal, Skv < S
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bf16_ragged_lengths_on_card(cuda, S, Skv, causal,
+                                                     D):
+    """The TMA ring's zero-filled rows past S and Skv, the masked edge
+    tiles and the causal bound, against the plain version."""
+    q, k, v = _fa_case(cuda, 2, 8, 2, S, Skv, D, causal)
+    got = fa_ops.flash_attention(q, k, v, causal)
+    want = fa_ref.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    _close(_f32(got.cpu()), _f32(want.cpu()), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_bf16_groups_and_head_dims_on_card(cuda, G, D):
+    """Odd and even groups (one or two query heads a block at D 64 and
+    128) and every head dim (mma.sync at 16 and 32)."""
+    Hkv = 2
+    q, k, v = _fa_case(cuda, 2, G * Hkv, Hkv, 130, 130, D, True)
+    got = fa_ops.flash_attention(q, k, v, True)
+    want = fa_ref.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    _close(_f32(got.cpu()), _f32(want.cpu()), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_a_side_stream(cuda):
+    """The launch goes to the current stream: a side stream's result,
+    once that stream is done, equals the default stream's."""
+    q, k, v = _fa_case(cuda, 4, 16, 2, 256, 256, 64, True)
+    want = fa_ops.flash_attention(q, k, v, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = fa_ops.flash_attention(q, k, v, True)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _fd_case(cuda, B, H, Hkv, S, D, dtype, seed=1):
+    q = _t(_rand(seed, (B, H, D)), dtype).to(cuda)
+    kc = _t(_rand(seed + 1, (B, S, Hkv, D)), dtype).to(cuda)
+    vc = _t(_rand(seed + 2, (B, S, Hkv, D)), dtype).to(cuda)
+    return q, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_groups_and_positions_on_card(cuda, G, dtype):
+    """pos at the tile edges (0, 63, 64, 65) and at the cache's end, for
+    every group size (heads past G padded in the tensor-core tile)."""
+    S = 300
+    q, kc, vc = _fd_case(cuda, 3, 2 * G, 2, S, 64, dtype)
+    for pos in (0, 63, 64, 65, S - 1):
+        got = fd_ops.flash_decode(q, kc, vc, pos)
+        want = fd_ref.flash_decode_plain(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        _close(_f32(got.cpu()), _f32(want.cpu()), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_decode_calls_in_a_row_equal_fresh_calls(cuda, monkeypatch):
+    """Calls at other shapes and positions in a row share the workspace
+    and its tickets; each result equals the same call made first on a
+    fresh workspace, bit for bit (the merge order is fixed)."""
+    calls = [(_fd_case(cuda, 16, 32, 4, 576, 64, "bfloat16"), 543),
+             (_fd_case(cuda, 2, 8, 2, 1000, 128, "bfloat16", 7), 999),
+             (_fd_case(cuda, 1, 4, 4, 77, 16, "bfloat16", 9), 70),
+             (_fd_case(cuda, 16, 32, 4, 576, 64, "bfloat16"), 100),
+             (_fd_case(cuda, 2, 8, 2, 1000, 128, "float32", 11), 512)]
+    in_a_row = [fd_ops.flash_decode(*args, pos) for args, pos in calls]
+    torch.cuda.synchronize()
+    for (args, pos), got in zip(calls, in_a_row):
+        monkeypatch.setattr(fd_ops, "_WORKSPACE", {})
+        fresh = fd_ops.flash_decode(*args, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fresh)
+        _close(_f32(got.cpu()),
+               _f32(fd_ref.flash_decode_plain(*args, pos).cpu()),
+               "float32" if got.dtype == torch.float32 else "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_decode_on_a_side_stream(cuda):
+    q, kc, vc = _fd_case(cuda, 16, 32, 4, 576, 64, "bfloat16")
+    want = fd_ops.flash_decode(q, kc, vc, 543)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = fd_ops.flash_decode(q, kc, vc, 543)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
