@@ -13,12 +13,17 @@ and prints no result):
               card (exact integer counts for the proximity kernels; ids
               and counts exact, top_p to 1e-5 for the MoE gate; 1e-5 in
               float32 and 2e-2 in bfloat16 for the attention kernels),
-              at the shapes the main paths give it and at one more;
-              CUDA-event times of the kernel and the plain version, the
-              kernel's device time (torch.profiler), the bound and, for
+              at the shapes the main paths give it and at one more (the
+              cell-list kernel also on a clustered world whose grid
+              overflows); CUDA-event times of the kernel and the plain
+              version, the kernel's device time (torch.profiler) and,
+              for the proximity kernels, every kernel and memset the
+              call issues on the device, the bound and, for
               the attention kernels, PyTorch's fused attention, both as
               a call (library_ms, beside ms) and on the device
-              (library_device_ms, beside kernel_device_ms)
+              (library_device_ms, beside kernel_device_ms); first, one
+              line with the device time of an empty kernel launched the
+              same way (the floor under microsecond kernels)
   4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
@@ -65,6 +70,7 @@ phase's decode steps).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -233,10 +239,36 @@ def world(n: int, area: float, rng: float, seed: int, dev):
     return cfg, st["pos"], st["lp"], sender
 
 
-def check_grid(n, area, rng, seed, dev):
+def clustered(n: int, area: float, seed: int, dev):
+    """(n, 2) float32 positions in three tight blobs (as the clustered
+    layout of tests/test_torch_neighbors.py): cells far fuller than the
+    uniform capacity, so the grid overflows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.tensor([[0.1, 0.1], [0.5, 0.9], [0.9, 0.4]],
+                           dtype=torch.float64, device=dev) * area
+    noise = torch.randn((n, 2), generator=g, dtype=torch.float64,
+                        device=dev)
+    pos = centers[torch.arange(n, device=dev) % 3] + noise * 0.015 * area
+    return (pos % area).to(torch.float32)
+
+
+def call_profile(call) -> dict:
+    """Every kernel and memset the call issues on the device: ms and
+    count per call, and their names."""
+    ms, per_call, names = device_profile(call)
+    return {"call_device_ms": ms, "call_device_ops_per_call": per_call,
+            "call_device_ops": names}
+
+
+def check_grid(n, area, rng, seed, dev, layout="engine"):
+    """The cell-list kernel against its plain version, exactly, on the
+    engine's own world or (layout "clustered") on three blobs, where the
+    grid must overflow and the drop set matters."""
     from repro_torch.core import neighbors
     from repro_torch.kernels.proximity import ops, ref
     cfg, pos, lp, snd = world(n, area, rng, seed, dev)
+    if layout == "clustered":
+        pos = clustered(n, area, seed, dev)
     spec = cfg.grid_spec()
     grid = neighbors.build_grid(pos, spec)
     args = (pos, lp, snd, cfg.n_lp, area, rng, spec, grid)
@@ -244,22 +276,31 @@ def check_grid(n, area, rng, seed, dev):
     want = ref.grid_lp_counts_plain(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    if err != 0 or bool(grid["overflow"]):
-        raise AssertionError(f"grid kernel at n={n}: max_abs_err={err}, "
-                             f"overflow={bool(grid['overflow'])}")
+    overflow = bool(grid["overflow"])
+    if err != 0 or overflow != (layout == "clustered"):
+        raise AssertionError(f"grid kernel at n={n}, {layout}: "
+                             f"max_abs_err={err}, overflow={overflow}")
     # work this run's data needs: every sender tests the members of its
-    # 9 cells (up to capacity), less itself
+    # 9 cells' windows (up to capacity), less itself where it is in one
     seg = grid["counts"].clamp(max=spec.capacity)
     nc = spec.ncell
     cx, cy = grid["cell"] // nc, grid["cell"] % nc
     cand = sum(seg[((cx + di) % nc) * nc + (cy + dj) % nc]
                for di in (-1, 0, 1) for dj in (-1, 0, 1))
-    pairs = int((cand[snd] - 1).sum())
+    rank = torch.arange(n, device=dev) - grid["starts"][grid["cell_sorted"]]
+    in_window = torch.empty_like(rank)
+    in_window[grid["order"]] = (rank < spec.capacity).long()
+    pairs = int((cand - in_window)[snd].sum())
+    # pos, lp, sender flag, order and cell_sorted per row, the CSR
+    # offsets, the output
     nbytes = n * (8 + 4 + 1 + 8 + 4) + nc * nc * 16 + n * cfg.n_lp * 4
     call = lambda: ops.proximity_lp_counts_grid(*args)  # noqa: E731
-    return {"n": n, "area": area, "range": rng, "max_abs_err": err,
-            "ms": time_ms(call),
+    return {"n": n, "area": area, "range": rng, "layout": layout,
+            "capacity": spec.capacity,
+            "max_cell": int(grid["counts"].max()), "overflow": overflow,
+            "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "grid_lp_counts_kernel"),
+            **call_profile(call),
             "plain_ms": time_ms(lambda: ref.grid_lp_counts_plain(*args),
                                 batch=1),
             **bound(nbytes, pairs * OPS_PER_PAIR), "pair_tests": pairs,
@@ -282,10 +323,26 @@ def check_dense(n, area, rng, seed, dev):
     return {"n": n, "area": area, "range": rng, "max_abs_err": err,
             "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "dense_lp_counts_kernel"),
+            **call_profile(call),
             "plain_ms": time_ms(lambda: ref.dense_lp_counts_plain(*args),
                                 batch=1, warmup=1),
             **bound(nbytes, pairs * OPS_PER_PAIR), "pair_tests": pairs,
             "library_ms": None}
+
+
+def launch_floor():
+    """The device time of an empty kernel launched as the proximity
+    kernels are (a ctypes C entry on the current stream): the floor
+    under their microsecond device times."""
+    from repro_torch.kernels import build as kbuild
+    fn = kbuild.load("proximity_dense").proximity_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+    emit(phase="launch_floor", kernel="empty_kernel<<<1, 32>>>",
+         device_ms=device_ms(call, "empty_kernel"), ms=time_ms(call))
 
 
 def bound(nbytes: int, ops: int, peak_ops: float = PEAK_F32_S) -> dict:
@@ -882,8 +939,11 @@ def main():
     if a.profile_serve:
         profile_serve(a.profile_serve, dev)
         return
+    launch_floor()
     shapes = {"grid": [check_grid(10_000, 10_000.0, 250.0, 1, dev),
-                       check_grid(1_000_000, 100_000.0, 250.0, 2, dev)],
+                       check_grid(1_000_000, 100_000.0, 250.0, 2, dev),
+                       check_grid(10_000, 10_000.0, 250.0, 5, dev,
+                                  layout="clustered")],
               "dense": [check_dense(2_000, 600.0, 250.0, 3, dev),
                         check_dense(10_000, 10_000.0, 250.0, 4, dev)],
               **check_lm_kernels(dev)}

@@ -7,91 +7,229 @@
 //
 // What bounds it on this card: operations. It reads O(N) bytes (the
 // positions, LPs and sender flags, and writes N * n_lp counts) but tests
-// n_senders * (N - 1) pairs at ~11 float32 operations each, so the floor
-// is the float32 (non-tensor-core) rate.
+// n_senders * (N - 1) pairs at ~12 float32 operations each, so the floor
+// is the float32 (non-tensor-core) rate. At the sizes the engine gives
+// it (N = 2,000) that floor is well under a microsecond, and what a
+// simple kernel pays instead is too few blocks (one per 256 rows) and
+// lanes that idle on the ~80% of rows that do not send.
 //
 // What the design does about it:
-//   * a block of TILE sender rows (one per thread) stages TILE recipient
-//     positions and LPs at a time in shared memory, so each recipient is
-//     read from device memory once per block, not once per pair;
-//   * the histogram is a per-thread register count (fully unrolled
-//     compare-add over a compile-time bound MAXL >= n_lp): there is no
-//     shared one-hot operand worth a tensor-core product here, and the
-//     counts stay exact integers;
-//   * nothing is padded: the last tile is cut at n, and no padded row or
-//     column reaches the output.
+//   * a 2-D grid: ROWS-row tiles x ranges of at most STAGE recipients,
+//     and at least two blocks per SM, so N = 2,000 runs 256 blocks;
+//   * a block loads its rows and stages its recipients (positions and
+//     LPs) in shared memory in one load level, then compacts its senders
+//     with __ballot_sync (a tile without senders leaves at once); every
+//     warp then works on (16-sender, 32-recipient) tiles, so no lane
+//     idles on a row that does not send;
+//   * the histogram is the TPU kernel's `mask @ onehot(lp)` on the int8
+//     tensor cores: each lane tests the 16 pairs of its A fragment of
+//     mma.sync.m16n8k32.s8 straight into bytes of 0/1, the one-hot of
+//     the recipients' LPs is the B fragment (one n-tile of 8 LPs for
+//     n_lp <= 8, up to eight for 64), and the product accumulates in
+//     int32, exactly, whatever the order;
+//   * the warps' int32 sums meet in shared memory and then in `out` by
+//     int32 atomicAdd across the recipient ranges; `out` is zeroed by a
+//     cudaMemsetAsync on the same stream inside the launch function.
+//     Integer addition is exact and commutative, so the counts are
+//     bit-identical from run to run.
 //
 // Per pair it evaluates exactly the reference's compiled expression
 //   d = |pi - pj|; d = min(d, area - d); fma(dx, dx, dy * dy) <= rng^2
-// with the intrinsics written out. Later work: skip warps without
-// senders (every warp now runs the sweep if any of its rows sends).
+// with the intrinsics written out. Padded sender slots (id -1) and
+// padded recipients (LP -1, a zero one-hot row) add nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int ROWS = 128;      // rows a block (sender candidates)
+constexpr int THREADS = 256;   // 8 warps
+constexpr int STAGE = 256;     // recipients a block, at most
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float wrapped(float a, float b, float area) {
   float d = fabsf(__fsub_rn(a, b));
   return fminf(d, __fsub_rn(area, d));
 }
 
-template <int MAXL>
-__global__ void __launch_bounds__(TILE) dense_lp_counts_kernel(
+__device__ __forceinline__ bool in_range(float sx, float sy, float qx,
+                                         float qy, float area, float rng2) {
+  const float dx = wrapped(sx, qx, area);
+  const float dy = wrapped(sy, qy, area);
+  return __fmaf_rn(dx, dx, __fmul_rn(dy, dy)) <= rng2;
+}
+
+// Sender (sid, sx, sy) against recipients j0 + 0..3 at q[0..3]: one 0/1
+// byte per pair, self and padded senders 0.
+__device__ __forceinline__ uint32_t mask4(int sid, float sx, float sy,
+                                          int j0, float4 q01, float4 q23,
+                                          float area, float rng2) {
+  const bool ok = sid >= 0;
+  uint32_t m = ok && sid != j0 && in_range(sx, sy, q01.x, q01.y, area, rng2);
+  m |= uint32_t(ok && sid != j0 + 1 &&
+                in_range(sx, sy, q01.z, q01.w, area, rng2)) << 8;
+  m |= uint32_t(ok && sid != j0 + 2 &&
+                in_range(sx, sy, q23.x, q23.y, area, rng2)) << 16;
+  m |= uint32_t(ok && sid != j0 + 3 &&
+                in_range(sx, sy, q23.z, q23.w, area, rng2)) << 24;
+  return m;
+}
+
+__device__ __forceinline__ uint32_t onehot4(int4 l, int n) {
+  return uint32_t(l.x == n) | uint32_t(l.y == n) << 8 |
+         uint32_t(l.z == n) << 16 | uint32_t(l.w == n) << 24;
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// NT n-tiles of 8 LPs: n_lp <= 8 * NT
+template <int NT>
+__global__ void __launch_bounds__(THREADS) dense_lp_counts_kernel(
     const float2* __restrict__ pos,      // (n,)
     const int32_t* __restrict__ lp,      // (n,)
     const uint8_t* __restrict__ sender,  // (n,) 0/1
-    int n, int n_lp, float area, float rng2,
-    int32_t* __restrict__ out) {         // (n, n_lp)
-  __shared__ float2 spos[TILE];
-  __shared__ int32_t slp[TILE];
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  const bool active = i < n && sender[i];
-  const float2 p = i < n ? pos[i] : make_float2(0.f, 0.f);
-  int hist[MAXL];
+    int n, int n_lp, float area, float rng2, int col_width,
+    int32_t* __restrict__ out) {         // (n, n_lp), zeroed
+  constexpr int W = NT * 8;  // histogram width in shared memory
+  __shared__ int s_id[ROWS];
+  __shared__ float s_x[ROWS], s_y[ROWS];
+  __shared__ __align__(16) float2 r_pos[STAGE];
+  __shared__ __align__(16) int r_lp[STAGE];
+  __shared__ int acc[ROWS * W];
+  __shared__ int warp_senders[ROWS / 32];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * ROWS;
+  const int col0 = blockIdx.y * col_width;
+  const int n_cols = min(n - col0, col_width);  // <= STAGE
+
+  // one load level: the tile's rows, and the recipients, staged (a
+  // padded recipient has LP -1, a zero one-hot row)
+  const int i = row0 + tid;
+  bool snd = false;
+  float2 p = make_float2(0.f, 0.f);
+  if (tid < ROWS && i < n) {
+    snd = sender[i];
+    p = pos[i];
+  }
+  for (int k = tid; k < STAGE; k += THREADS) {
+    r_pos[k] = k < n_cols ? pos[col0 + k] : make_float2(0.f, 0.f);
+    r_lp[k] = k < n_cols ? lp[col0 + k] : -1;
+  }
+  const unsigned bal = __ballot_sync(FULL, snd);
+  if (warp < ROWS / 32 && lane == 0) warp_senders[warp] = __popc(bal);
+  __syncthreads();
+
+  // compact the senders: slot = senders of earlier rows
+  int ns = 0, before = 0;
 #pragma unroll
-  for (int t = 0; t < MAXL; ++t) hist[t] = 0;
-  for (int base = 0; base < n; base += TILE) {
-    const int j = base + threadIdx.x;
-    if (j < n) {
-      spos[threadIdx.x] = pos[j];
-      slp[threadIdx.x] = lp[j];
-    }
-    __syncthreads();
-    const int m = min(TILE, n - base);
-    if (active) {
-      for (int k = 0; k < m; ++k) {
-        if (base + k == i) continue;
-        const float2 q = spos[k];
-        const float dx = wrapped(p.x, q.x, area);
-        const float dy = wrapped(p.y, q.y, area);
-        if (__fmaf_rn(dx, dx, __fmul_rn(dy, dy)) <= rng2) {
-          const int l = slp[k];
+  for (int w = 0; w < ROWS / 32; ++w) {
+    before += w < warp ? warp_senders[w] : 0;
+    ns += warp_senders[w];
+  }
+  if (ns == 0) return;  // the whole block: no sender in this tile
+  const int mt_count = (ns + 15) / 16;
+  if (snd) {
+    const int slot = before + __popc(bal & ((1u << lane) - 1));
+    s_id[slot] = i;
+    s_x[slot] = p.x;
+    s_y[slot] = p.y;
+  }
+  if (tid >= ns && tid < mt_count * 16) {
+    s_id[tid] = -1;  // padded slot: adds nothing
+    s_x[tid] = s_y[tid] = 0.f;
+  }
+  for (int k = tid; k < ns * W; k += THREADS) acc[k] = 0;
+  __syncthreads();
+
+  // warps share the m-tiles: wpm warps a tile, each a share of the
+  // k-tiles of 32 recipients (warps past mt_count * wpm idle)
+  const int wpm = (THREADS / 32) / mt_count;
+  const int mt = warp / wpm, sub = warp - mt * wpm;
+  if (mt < mt_count) {
+    const int n_kt = (n_cols + 31) / 32;
+    // this lane's A rows are slots mt * 16 + g and + 8; its C entries
+    // rows g, g + 8 and LPs 8 nt + 2t, + 1
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    const int sid0 = s_id[r0], sid1 = s_id[r1];
+    const float x0 = s_x[r0], y0 = s_y[r0], x1 = s_x[r1], y1 = s_y[r1];
+    int c[NT][4];
 #pragma unroll
-          for (int t = 0; t < MAXL; ++t) hist[t] += (l == t);
-        }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] = 0;
+    for (int kt = sub; kt < n_kt; kt += wpm) {
+      // A: rows g / g + 8 against recipients kb + 4t + i (a0 / a1) and
+      // kb + 16 + 4t + i (a2 / a3); B: the same recipients' one-hot
+      const int kb = kt * 32;
+      const float4* rp = reinterpret_cast<const float4*>(r_pos + kb);
+      const float4 q0 = rp[2 * t], q1 = rp[2 * t + 1];
+      const float4 q2 = rp[8 + 2 * t], q3 = rp[8 + 2 * t + 1];
+      const int ja = col0 + kb + 4 * t, jb = ja + 16;
+      const uint32_t a0 = mask4(sid0, x0, y0, ja, q0, q1, area, rng2);
+      const uint32_t a1 = mask4(sid1, x1, y1, ja, q0, q1, area, rng2);
+      const uint32_t a2 = mask4(sid0, x0, y0, jb, q2, q3, area, rng2);
+      const uint32_t a3 = mask4(sid1, x1, y1, jb, q2, q3, area, rng2);
+      const int4 la = *reinterpret_cast<const int4*>(r_lp + kb + 4 * t);
+      const int4 lb = *reinterpret_cast<const int4*>(r_lp + kb + 16 + 4 * t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt * 8 >= n_lp) break;  // warp-uniform
+        mma_s8(c[nt], a0, a1, a2, a3, onehot4(la, nt * 8 + g),
+               onehot4(lb, nt * 8 + g));
       }
     }
-    __syncthreads();
-  }
-  if (i < n) {
 #pragma unroll
-    for (int t = 0; t < MAXL; ++t) {
-      if (t < n_lp) out[(int64_t)i * n_lp + t] = hist[t];
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = e < 2 ? r0 : r1;
+        const int col = nt * 8 + 2 * t + (e & 1);
+        if (slot < ns && c[nt][e] != 0)
+          atomicAdd(&acc[slot * W + col], c[nt][e]);
+      }
     }
+  }
+  __syncthreads();
+
+  // the block's histogram into `out`
+  for (int k = tid; k < ns * n_lp; k += THREADS) {
+    const int slot = k / n_lp, l = k - slot * n_lp;
+    const int v = acc[slot * W + l];
+    if (v != 0)
+      atomicAdd(&out[static_cast<int64_t>(s_id[slot]) * n_lp + l], v);
   }
 }
 
-template <int MAXL>
+__global__ void empty_kernel() {}
+
+template <int NT>
 void launch(const void* pos, const void* lp, const void* sender, int n,
-            int n_lp, float area, float rng2, void* out,
+            int n_lp, float area, float rng2, void* out, int sms,
             cudaStream_t stream) {
-  const int blocks = (n + TILE - 1) / TILE;
-  dense_lp_counts_kernel<MAXL><<<blocks, TILE, 0, stream>>>(
+  // row tiles x recipient ranges of at most STAGE recipients, and at
+  // least two blocks an SM
+  const int row_tiles = (n + ROWS - 1) / ROWS;
+  int ranges = max((2 * sms + row_tiles - 1) / row_tiles,
+                   (n + STAGE - 1) / STAGE);
+  ranges = min(ranges, (n + 31) / 32);
+  int col_width = (n + ranges - 1) / ranges;
+  col_width = (col_width + 31) / 32 * 32;
+  ranges = (n + col_width - 1) / col_width;
+  dense_lp_counts_kernel<NT><<<dim3(row_tiles, ranges), THREADS, 0,
+                               stream>>>(
       static_cast<const float2*>(pos), static_cast<const int32_t*>(lp),
-      static_cast<const uint8_t*>(sender), n, n_lp, area, rng2,
+      static_cast<const uint8_t*>(sender), n, n_lp, area, rng2, col_width,
       static_cast<int32_t*>(out));
 }
 
@@ -102,20 +240,32 @@ extern "C" int dense_lp_counts_launch(const void* pos, const void* lp,
                                       float area, float rng2, void* out,
                                       void* stream) {
   if (n <= 0) return 0;
+  if (n_lp < 1 || n_lp > 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_lp <= 4) {
-    launch<4>(pos, lp, sender, n, n_lp, area, rng2, out, s);
-  } else if (n_lp <= 8) {
-    launch<8>(pos, lp, sender, n, n_lp, area, rng2, out, s);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * size_t(n) * n_lp, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_lp <= 8) {
+    launch<1>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
   } else if (n_lp <= 16) {
-    launch<16>(pos, lp, sender, n, n_lp, area, rng2, out, s);
+    launch<2>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
   } else if (n_lp <= 32) {
-    launch<32>(pos, lp, sender, n, n_lp, area, rng2, out, s);
-  } else if (n_lp <= 64) {
-    launch<64>(pos, lp, sender, n, n_lp, area, rng2, out, s);
+    launch<4>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<8>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched the way the proximity kernels are (ctypes,
+// the current stream): the floor under their device times. Measurement
+// only: chip_smoke.py's `launch_floor` phase is its one caller.
+extern "C" int proximity_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,12 @@ proximity_lp_counts       dense kernel      (csrc/proximity_dense.cu)
 
 On a CUDA tensor a wrapper checks its inputs, allocates the output with
 `torch.empty`, launches its kernel on the current stream and counts the
-launch; a launch the driver refuses raises. On a CPU tensor it runs the
-kernel's plain version (`ref.py`), and only then: there is no fallback
-from the card to the plain code.
+launch; a launch the CUDA runtime refuses raises. Each call is that one
+launch: the cell-list kernel reads the CSR grid and the id-order inputs
+in place (no gather into sorted order), and the dense kernel's launch
+function zeroes its output itself (`cudaMemsetAsync`, same stream). On
+a CPU tensor it runs the kernel's plain version (`ref.py`), and only
+then: there is no fallback from the card to the plain code.
 """
 from __future__ import annotations
 
@@ -76,23 +79,21 @@ def proximity_lp_counts_grid(pos, lp, sender_mask, n_lp: int, area: float,
     _check("cell_sorted", grid["cell_sorted"], torch.int32, (n,), pos.device)
     for k in ("starts", "counts"):
         _check(k, grid[k], torch.int64, (ncells,), pos.device)
-    pos_s = pos[order]
-    lp_s = lp[order]
-    snd_s = sender_mask[order].view(torch.uint8)
+    snd = sender_mask.view(torch.uint8)
     out = torch.empty((n, n_lp), dtype=torch.int32, device=pos.device)
     grid_kernel.launch(
-        pos_s.data_ptr(), lp_s.data_ptr(), snd_s.data_ptr(),
-        grid["cell_sorted"].data_ptr(), order.data_ptr(),
-        grid["starts"].data_ptr(), grid["counts"].data_ptr(), n,
-        spec.ncell, spec.capacity, n_lp, f32(area), f32(rng * rng),
-        out.data_ptr())
+        pos.data_ptr(), lp.data_ptr(), snd.data_ptr(), order.data_ptr(),
+        grid["cell_sorted"].data_ptr(), grid["starts"].data_ptr(),
+        grid["counts"].data_ptr(), n, spec.ncell, spec.capacity, n_lp,
+        f32(area), f32(rng * rng), out.data_ptr())
     return out
 
 
 def proximity_lp_counts(pos, lp, sender_mask, n_lp: int, area: float,
                         rng: float):
     """Dense-sweep twin of `proximity_lp_counts_grid` (exact on every
-    world, O(N^2) pair tests)."""
+    world, O(N^2) pair tests). The output is zeroed and summed into by
+    the launch (int32 atomics: exact and order-free)."""
     if pos.device.type == "cpu":
         return ref.dense_lp_counts_plain(pos, lp, sender_mask, n_lp, area,
                                          rng)

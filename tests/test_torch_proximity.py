@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import neighbors as tn  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.proximity import ops, ref  # noqa: E402
+from torch_layouts import CASES, layout  # noqa: E402
 
 
 @pytest.fixture
@@ -146,23 +147,56 @@ def cuda():
     return torch.device("cuda")
 
 
+#: (kind, seed, n, n_lp, area, rng, capacity, senders): the layout cases
+#: of tests/test_torch_neighbors.py (overflowed and clustered grids
+#: among them), then the shapes that stress the kernels' decompositions;
+#: senders "draw" keeps the layout's draw, "none" / "all" override it
+CARD_CASES = [(*case, "draw") for case in CASES] + [
+    ("uniform", 10_000, 10_000, 4, 10_000.0, 250.0, 0, "draw"),  # engine
+    ("uniform", 2000, 2000, 4, 600.0, 250.0, 0, "draw"),  # dense world
+    ("uniform", 777, 777, 50, 1000.0, 90.0, 0, "draw"),
+    ("uniform", 9, 900, 64, 1000.0, 100.0, 0, "draw"),  # n_lp 64
+    ("uniform", 10, 600, 7, 300.0, 100.0, 0, "draw"),  # ncell == 3
+    # cells of ~200 members: one sender's candidates span several chunks
+    ("clustered", 11, 3000, 4, 1000.0, 100.0, 3000, "draw"),
+    ("clustered", 15, 2000, 64, 1000.0, 100.0, 2000, "all"),
+    # every cell ~80 members: each cell's tail beside the next one's head
+    ("uniform", 16, 8000, 4, 1000.0, 100.0, 8000, "draw"),
+    ("uniform", 12, 20, 3, 1000.0, 300.0, 0, "all"),  # below one tile
+    ("uniform", 13, 500, 4, 1000.0, 100.0, 0, "none"),
+    ("uniform", 14, 500, 9, 1000.0, 100.0, 0, "all"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,n_lp,area,rng", [
-    (10_000, 4, 10_000.0, 250.0), (2000, 4, 600.0, 250.0),
-    (777, 50, 1000.0, 90.0)])
-def test_kernels_equal_plain_on_card(cuda, n, n_lp, area, rng):
-    tp, tl, ts = (t.to(cuda) for t in _t(*_case(n, n, n_lp, area)))
+@pytest.mark.parametrize("kind,seed,n,n_lp,area,rng,cap,senders",
+                         CARD_CASES)
+def test_kernels_equal_plain_on_card(cuda, kind, seed, n, n_lp, area, rng,
+                                     cap, senders):
+    """Both kernels bit-equal to their plain versions, and two calls in a
+    row bit-equal to each other (the dense kernel sums with atomics into
+    an output its launch zeroes; the cell-list kernel writes every row
+    of a `torch.empty` output once)."""
+    pos, lp, sender = layout(kind, seed, n, area, n_lp)
+    if senders != "draw":
+        sender = np.full(n, senders == "all")
+    tp, tl, ts = (t.to(cuda) for t in _t(pos, lp, sender))
     want = ref.dense_lp_counts_plain(tp, tl, ts, n_lp, area, rng)
     got = ops.proximity_lp_counts(tp, tl, ts, n_lp, area, rng)
     assert torch.equal(got, want)
-    spec = tn.make_grid_spec(n, area, rng)
+    assert torch.equal(ops.proximity_lp_counts(tp, tl, ts, n_lp, area, rng),
+                       got)
+    spec = tn.make_grid_spec(n, area, rng, capacity=cap)
     if spec is not None:
         grid = tn.build_grid(tp, spec)
         got = ops.proximity_lp_counts_grid(tp, tl, ts, n_lp, area, rng,
                                            spec, grid)
         assert torch.equal(got, ref.grid_lp_counts_plain(
             tp, tl, ts, n_lp, area, rng, spec, grid))
-        assert torch.equal(got, want)
+        assert torch.equal(ops.proximity_lp_counts_grid(
+            tp, tl, ts, n_lp, area, rng, spec, grid), got)
+        if not bool(grid["overflow"]):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
