@@ -17,8 +17,10 @@ and prints no result):
               cell-list kernel also on a clustered world whose grid
               overflows); CUDA-event times of the kernel and the plain
               version, the kernel's device time (torch.profiler) and,
-              for the proximity kernels, every kernel and memset the
-              call issues on the device, the bound and, for
+              for the proximity kernels and the MoE gate, every kernel
+              and memset the call issues on the device (a gate call
+              must be one kernel; its shapes add a nonzero bias and
+              tie-heavy logits), the bound and, for
               the attention kernels, PyTorch's fused attention, both as
               a call (library_ms, beside ms) and on the device
               (library_device_ms, beside kernel_device_ms); first, one
@@ -366,28 +368,43 @@ def _attn_err(got, want, dtype):
     return float((d - tol * (1 + w.abs())).max()), float(d.max())
 
 
-def check_moe_gate(T, E, k, dtype, dev):
+def check_moe_gate(T, E, k, dtype, dev, bias=False, ties=False):
+    """The MoE gate against its plain version (ids and counts exact,
+    top_p within GATE_TOL); a call must be one operation on the device.
+    The bias is zeros, as the serve path's router bias, unless `bias`;
+    `ties` rounds the logits to halves, so that many probabilities tie
+    exactly and the lower id must win."""
     from repro_torch.kernels.moe_gate import ops, ref
     logits = _randn((T, E), T + E, dev, dtype, scale=0.7)
-    bias = torch.zeros(E, device=dev)
-    got = ops.moe_gate(logits, k, bias=bias)
-    want = ref.moe_gate_plain(logits, k, bias, True)
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    b = _randn((E,), E + 1, dev, scale=0.1) if bias else torch.zeros(
+        E, device=dev)
+    got = ops.moe_gate(logits, k, bias=b)
+    want = ref.moe_gate_plain(logits, k, b, True)
     torch.cuda.synchronize()
     err = float((got[0] - want[0]).abs().max())
+    what = f"moe_gate at T={T}, E={E}, k={k}, {dtype}, bias={bias}, " \
+           f"ties={ties}"
     if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
             and err <= GATE_TOL):
-        raise AssertionError(f"moe_gate at T={T}, E={E}, k={k}, {dtype}: "
-                             f"ids/counts differ or top_p err {err}")
+        raise AssertionError(f"{what}: ids/counts differ or top_p err {err}")
     esize = logits.element_size()
     nbytes = T * E * esize + E * 4 + T * k * 8 + E * 4
     # per row: sub, exp, sum, div and bias add over E, k compare sweeps
     ops_n = T * E * (5 + 2 * k)
-    call = lambda: ops.moe_gate(logits, k, bias=bias)  # noqa: E731
+    call = lambda: ops.moe_gate(logits, k, bias=b)  # noqa: E731
+    prof = call_profile(call)
+    if prof["call_device_ops_per_call"] != 1:
+        raise AssertionError(f"{what}: a call issued {prof} on the device, "
+                             f"not one kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return {"T": T, "E": E, "k": k, "dtype": str(dtype).split(".")[-1],
+            "bias": bias, "ties": ties, "blocks": ops.grid_plan(T, sms),
             "max_abs_err": err, "ms": time_ms(call),
-            "kernel_device_ms": device_ms(call, "moe_gate_kernel"),
+            "kernel_device_ms": device_ms(call, "moe_gate_kernel"), **prof,
             "plain_ms": time_ms(lambda: ref.moe_gate_plain(
-                logits, k, bias, True), batch=1),
+                logits, k, b, True), batch=1),
             **bound(nbytes, ops_n), "library_ms": None}
 
 
@@ -459,12 +476,15 @@ def check_flash_decode(B, H, Hkv, S, D, pos, dtype, dev):
 def check_lm_kernels(dev):
     """The three kernels of the serving path at the shapes qwen3-moe-
     30b-a3b's prefill (16 x 512 tokens) and decode (16 tokens, cache
-    576) give them, and one more shape each."""
+    576) give them, and more: the gate in bfloat16, with a nonzero bias
+    and on tie-heavy logits, the attention kernels in float32."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "moe_gate": [check_moe_gate(8192, 128, 8, f32, dev),
                      check_moe_gate(16, 128, 8, f32, dev),
-                     check_moe_gate(8192, 128, 8, bf, dev)],
+                     check_moe_gate(8192, 128, 8, bf, dev),
+                     check_moe_gate(8192, 128, 8, f32, dev, bias=True),
+                     check_moe_gate(8192, 128, 8, f32, dev, ties=True)],
         "flash_attention": [
             check_flash_attention(16, 32, 4, 512, 64, bf, dev),
             check_flash_attention(2, 8, 2, 384, 128, f32, dev)],

@@ -110,6 +110,34 @@ def test_wrapper_never_falls_back_off_the_cpu():
         ops.moe_gate(x, 2)
 
 
+@pytest.mark.parametrize("t,sms,blocks", [
+    (0, 132, 1),            # no rows: one block still writes the counts
+    (1, 132, 1), (16, 132, 1),   # decode: one block, no workspace
+    (17, 132, 2), (8192, 132, 264), (65536, 132, 264), (8192, 1, 2)])
+def test_grid_plan(t, sms, blocks):
+    """One block for each WARPS rows, at most BLOCKS_PER_SM an SM, and
+    never none; the grid's warps cover every row by grid stride."""
+    assert ops.grid_plan(t, sms) == blocks
+    assert blocks <= max(1, sms * ops.BLOCKS_PER_SM)
+    assert blocks * ops.WARPS * -(-max(t, 1) // (blocks * ops.WARPS)) >= t
+
+
+def test_counts_are_handed_on_zeroed(monkeypatch):
+    """A call's counts are the buffer the previous launch at the same E
+    was given to zero (zeros on the first call at an E), and each call
+    hands a fresh one to its launch; other expert counts keep their own."""
+    monkeypatch.setattr(ops, "_ZEROED", {})
+    dev = torch.device("cpu")
+    first, nxt = ops._counts(dev, 128)
+    assert first.dtype == torch.int32 and first.shape == (128,)
+    assert not first.any() and nxt is not first
+    other, other_nxt = ops._counts(dev, 500)
+    assert other.shape == (500,) and not other.any()
+    again, nxt2 = ops._counts(dev, 128)
+    assert again is nxt and nxt2 is not nxt
+    assert ops._counts(dev, 500)[0] is other_nxt
+
+
 # --- on the card ---------------------------------------------------------
 
 
@@ -139,6 +167,112 @@ def test_kernel_equals_plain_on_card(cuda, t, e, k, dtype, use_bias,
     want = ref.moe_gate_plain(x, k, b, norm_topk)
     torch.cuda.synchronize()
     _check([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want])
+
+
+def _on_card(cuda, t, e, k, seed, dtype=torch.float32, use_bias=False):
+    x = torch.from_numpy(_logits(seed, t, e, 0.7)).to(cuda, dtype)
+    b = torch.from_numpy(_bias(seed, e)).to(cuda) if use_bias else None
+    return x, b
+
+
+def _check_on_card(x, k, b=None, norm_topk=True):
+    got = ops.moe_gate(x, k, bias=b, norm_topk=norm_topk)
+    want = ref.moe_gate_plain(x, k, b, norm_topk)
+    torch.cuda.synchronize()
+    _check([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want])
+    return got
+
+
+@pytest.mark.cuda
+def test_kernel_calls_in_a_row_find_their_counts_zeroed(cuda):
+    """Three calls with the same inputs over several blocks: each adds
+    into counts its previous launch zeroed, so each call's counts are
+    the same, and the buffer left for the next call is zero."""
+    x, b = _on_card(cuda, 8192, 128, 8, 1, use_bias=True)
+    assert ops.grid_plan(8192, ops._sm_count(cuda)) > 1
+    first = _check_on_card(x, 8, b)
+    for _ in range(2):
+        again = _check_on_card(x, 8, b)
+        assert all(torch.equal(g, w) for g, w in zip(again, first))
+    assert not ops._ZEROED[(x.device, 128)].any()
+
+
+@pytest.mark.cuda
+def test_kernel_alternating_expert_counts(cuda):
+    """Calls alternating E = 128 and E = 500, each E with the counts its
+    own previous launch zeroed."""
+    for i in range(4):
+        e, k = (128, 8) if i % 2 == 0 else (500, 6)
+        x, b = _on_card(cuda, 4096 + i, e, k, 10 + i, use_bias=i > 1)
+        _check_on_card(x, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0, 1])
+def test_kernel_at_zero_and_one_row(cuda, t):
+    """T = 0 gives zero counts; T = 1 is one warp's row."""
+    x, _ = _on_card(cuda, t, 128, 8, 3)
+    top_p, top_e, counts = _check_on_card(x, 8)
+    assert top_p.shape == (t, 8) and top_e.shape == (t, 8)
+    assert int(counts.sum()) == 8 * t
+
+
+@pytest.mark.cuda
+def test_kernel_more_rows_than_the_grid_holds(cuda):
+    """65,536 rows: each warp of the persistent grid walks many rows."""
+    x, b = _on_card(cuda, 65536, 128, 8, 4, use_bias=True)
+    assert ops.grid_plan(65536, ops._sm_count(cuda)) * ops.WARPS < 65536
+    _check_on_card(x, 8, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_scalar_loads(cuda, dtype):
+    """E = 77 (no vector loads: the row stride is not a multiple of a
+    lane's chunk), and a row view that starts off the 16-byte
+    alignment."""
+    x, b = _on_card(cuda, 1000, 77, 3, 5, dtype, use_bias=True)
+    _check_on_card(x, 3, b)
+    y, _ = _on_card(cuda, 1001, 128, 8, 6, dtype)
+    _check_on_card(y[1:], 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k", [(128, 8), (500, 6), (8, 2)])
+def test_kernel_all_equal_rows_pick_the_first_ids(cuda, e, k):
+    """Rows of equal logits tie everywhere: the ids are 0..k-1 in every
+    row, each with probability 1/e (1/k renormalised)."""
+    x = torch.full((300, e), 0.25, device=cuda)
+    top_p, top_e, counts = _check_on_card(x, k)
+    assert torch.equal(top_e.cpu(), torch.arange(k, dtype=torch.int32)
+                       .expand(300, k))
+    assert counts[:k].eq(300).all() and not counts[k:].any()
+
+
+@pytest.mark.cuda
+def test_kernel_ties_from_rounded_logits(cuda):
+    """Logits rounded to a few levels: many probabilities tie exactly,
+    with and without a bias, and the lower id must win each tie."""
+    x, b = _on_card(cuda, 8192, 128, 8, 7)
+    x = torch.round(x * 2) / 2
+    _check_on_card(x, 8)
+    _check_on_card(x, 8, b=torch.zeros(128, device=cuda).index_fill_(
+        0, torch.arange(0, 128, 3, device=cuda), 0.125))
+
+
+@pytest.mark.cuda
+def test_kernel_on_a_side_stream(cuda):
+    """A call on another stream, ordered after the current one, finds
+    its counts zeroed and gives the same result."""
+    x, b = _on_card(cuda, 8192, 128, 8, 8, use_bias=True)
+    want = ops.moe_gate(x, 8, bias=b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ops.moe_gate(x, 8, bias=b)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
