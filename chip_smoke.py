@@ -6,7 +6,7 @@ Phases, each of which raises on failure (so the script exits non-zero
 and prints no result):
 
   1. card     the GPU's name and power limit (nvidia-smi), torch, CUDA
-  2. build    the five kernels built from the checkout's sources, with
+  2. build    the seven kernels built from the checkout's sources, with
               nvcc's -Xptxas -v figures (registers, shared memory,
               spills) of every kernel
   3. kernels  each kernel held against its plain PyTorch version on the
@@ -25,15 +25,31 @@ and prints no result):
               a call (library_ms, beside ms) and on the device
               (library_device_ms, beside kernel_device_ms); first, one
               line with the device time of an empty kernel launched the
-              same way (the floor under microsecond kernels)
+              same way (the floor under microsecond kernels). The
+              scenario shapes: the cell-list kernel as the epidemic's
+              exposure sweep (n_lp = 2) and on an exp6 hotspot world,
+              the dense kernel with every SE a sender (`bestresponse`),
+              the flock's cell-sum kernel (bit for bit; library
+              `index_add_`) and the partitioners' capacity-assign
+              kernel on kmeans' and bestresponse's costs
   4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
               counts are set to 0 just before and read just after
-  5. scale    a 1M-SE window (area 100,000, paper density)
-  6. cpu      the port on the card against the port on the CPU: integer
-              series identical, positions within one ULP of `area`
-  7. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
+  5. scenarios exp6's fleet at full width (10k SEs, area 10,000, GAIA
+              on): the epidemic for 1,200 steps (two cell-list launches
+              a step), hotspot, group, flock and trace replay, and
+              exp7's hotspot with kmeans repartitioning every 100 steps
+              (300 steps each), each priced by `wct_env` on four
+              environments; then one `bestresponse` init (8 dense and
+              8 capacity-assign launches); launch counts set to 0 just
+              before each run
+  6. scale    a 1M-SE window (area 100,000, paper density)
+  7. cpu      the port on the card against the port on the CPU, for rwp
+              and every scenario at 2,000 SEs: integer series identical,
+              positions within one ULP of `area` (kmeans, voronoi and
+              flock: their agreement is printed)
+  8. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
               random weights drawn on the card) serving 16 prompts of
               512 tokens and 64 greedy steps with GAIA expert placement
               (examples/serve_moe.py's settings); launch counts set to
@@ -43,28 +59,30 @@ and prints no result):
               forced on the kernels' tokens and hidden states, through
               the kernels and through their plain versions (rows that
               route alike agree within the bf16 tolerance)
-  8. serve_cpu the smoke config on the card against the port on the CPU,
+  9. serve_cpu the smoke config on the card against the port on the CPU,
               teacher-forced (logits within the bf16 tolerance)
 
 Every line but the last is one JSON object (the card's nvidia-smi line
-excepted); the last is {"ok": true, "device": {...}}.
+excepted); a `seconds` line gives each phase's wall time; the last is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile 20
 
 instead builds the kernels and measures 20 steps of the default config
-(after 5 warm-up ones): each phase's elapsed time on the stream (CUDA
-events), the untraced time per step, and, from a `torch.profiler` trace
-of 20 more, the device's busy time per step (the union of its kernels'
-intervals; its share of the untraced step is the busy share) and its
-kernels by time. It prints no result line.
+(with `--scenario epidemic|hotspot|group|flock|trace`, of that exp6
+scenario at full width), after 5 warm-up ones: each phase's elapsed
+time on the stream (CUDA events), the untraced time per step, and, from
+a `torch.profiler` trace of 20 more, the device's busy time per step
+(the union of its kernels' intervals; its share of the untraced step is
+the busy share) and its kernels by time. It prints no result line.
 
     python3 chip_smoke.py --profile-serve 8
 
 does the same for the serve phase's model: one traced prefill, then 8
 untraced and 8 traced decode steps.
 
-    python3 chip_smoke.py --gen 4 --steps 50 --dense-steps 20 \
-        --scale-steps 3 --cpu-steps 20
+    python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
+        --scale-steps 3 --cpu-steps 20 --epi-steps 50 --scenario-steps 110
 
 is a shake-out run that cuts every phase short (--gen sets the serve
 phase's decode steps).
@@ -120,6 +138,12 @@ OPS_PER_PAIR = 12
 #: float32 positions stay in [0, area); one ULP of `area` bounds a
 #: rounding difference anywhere in that range
 ULP = 2.0 ** -23
+#: the epidemic of benchmarks/exp6_scenarios.py (`EPI`): a slow SIS wave
+#: whose infectious SEs send 5x more often
+EPI = dict(workload="epidemic", epi_beta=0.05, epi_gamma=0.08,
+           epi_seed_frac=0.05, epi_boost=5.0)
+#: the environments exp6 and exp7 price each run on
+ENVS = ("shm", "lan", "wan2", "hetero")
 
 
 def emit(**kv):
@@ -144,21 +168,29 @@ def time_ms(fn, reps: int = 20, batch: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, kernel=None, calls: int = 20):
+def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5):
     """(ms, kernels per call, names) of the CUDA kernels whose names hold
     `kernel` (every kernel when None), per call of fn(), over `calls`
-    calls (torch.profiler); ms is None when none ran."""
+    calls (torch.profiler); ms is None when none ran.
+
+    Every call issues the same kernels, so a count that is not a whole
+    multiple of `calls` means the trace lost records (seen once in 19 of
+    20 moe_gate launches): the calls are traced again, up to `tries`
+    times in all, and the last trace is returned."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (kernel is None or kernel in e.name)]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.name)]
+        if len(ev) % calls == 0:
+            break
     ms = sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
     return (ms if ev else None), len(ev) / calls, sorted(
         {e.name[:80] for e in ev})
@@ -262,18 +294,45 @@ def call_profile(call) -> dict:
             "call_device_ops": names}
 
 
+def scenario_world(mobility: str, seed: int, dev, **abm):
+    """Positions and state of an exp6-sized world (10k SEs) of the given
+    mobility model (and workload) from the engine's own init."""
+    from repro_torch import random as trandom
+    from repro_torch.core.abm import ABMConfig, init_abm
+    cfg = ABMConfig(mobility=mobility, **abm)
+    return cfg, init_abm(trandom.key(seed), cfg, dev)
+
+
 def check_grid(n, area, rng, seed, dev, layout="engine"):
     """The cell-list kernel against its plain version, exactly, on the
-    engine's own world or (layout "clustered") on three blobs, where the
-    grid must overflow and the drop set matters."""
+    engine's own world, on three blobs (layout "clustered": the grid
+    must overflow and the drop set matters), on an exp6 hotspot world
+    (layout "hotspot": crowded cells under the clustered capacity) or
+    as the epidemic's exposure sweep (layout "epidemic": n_lp = 2, the
+    infectious senders' 0/1 labels, the susceptible rows)."""
+    from repro_torch import random as trandom
     from repro_torch.core import neighbors
+    from repro_torch.core.abm import epidemic_send_prob
     from repro_torch.kernels.proximity import ops, ref
     cfg, pos, lp, snd = world(n, area, rng, seed, dev)
+    n_lp = cfg.n_lp
     if layout == "clustered":
         pos = clustered(n, area, seed, dev)
+    elif layout == "hotspot":
+        cfg, st = scenario_world("hotspot", seed, dev, n_se=n, area=area,
+                                 interaction_range=rng)
+        pos, lp = st["pos"], st["lp"]
+    elif layout == "epidemic":
+        cfg, st = scenario_world("rwp", seed, dev, n_se=n, area=area,
+                                 interaction_range=rng, **EPI)
+        pos, n_lp = st["pos"], 2
+        hot = trandom.uniform(trandom.key(seed + 1), (n,), device=dev) \
+            < epidemic_send_prob(st["epi"], cfg)
+        lp = ((st["epi"] > 0) & hot).to(torch.int32)
+        snd = st["epi"] == 0
     spec = cfg.grid_spec()
     grid = neighbors.build_grid(pos, spec)
-    args = (pos, lp, snd, cfg.n_lp, area, rng, spec, grid)
+    args = (pos, lp, snd, n_lp, area, rng, spec, grid)
     got = ops.proximity_lp_counts_grid(*args)
     want = ref.grid_lp_counts_plain(*args)
     torch.cuda.synchronize()
@@ -295,10 +354,10 @@ def check_grid(n, area, rng, seed, dev, layout="engine"):
     pairs = int((cand - in_window)[snd].sum())
     # pos, lp, sender flag, order and cell_sorted per row, the CSR
     # offsets, the output
-    nbytes = n * (8 + 4 + 1 + 8 + 4) + nc * nc * 16 + n * cfg.n_lp * 4
+    nbytes = n * (8 + 4 + 1 + 8 + 4) + nc * nc * 16 + n * n_lp * 4
     call = lambda: ops.proximity_lp_counts_grid(*args)  # noqa: E731
     return {"n": n, "area": area, "range": rng, "layout": layout,
-            "capacity": spec.capacity,
+            "n_lp": n_lp, "capacity": spec.capacity,
             "max_cell": int(grid["counts"].max()), "overflow": overflow,
             "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "grid_lp_counts_kernel"),
@@ -309,9 +368,18 @@ def check_grid(n, area, rng, seed, dev, layout="engine"):
             "library_ms": None}
 
 
-def check_dense(n, area, rng, seed, dev):
+def check_dense(n, area, rng, seed, dev, all_senders=False):
+    """The dense kernel against its plain version, exactly; with
+    `all_senders`, as `bestresponse` calls it (every SE a sender, on
+    the stripe partition's map)."""
     from repro_torch.kernels.proximity import ops, ref
     cfg, pos, lp, snd = world(n, area, rng, seed, dev)
+    if all_senders:
+        from repro_torch.core import partition as part
+        snd = torch.ones_like(snd)
+        lp = part.partition(None, pos, torch.ones(n, device=dev),
+                            part.PartitionConfig(backend="stripe",
+                                                 area=area))
     args = (pos, lp, snd, cfg.n_lp, area, rng)
     got = ops.proximity_lp_counts(*args)
     want = ref.dense_lp_counts_plain(*args)
@@ -322,14 +390,94 @@ def check_dense(n, area, rng, seed, dev):
     pairs = int(snd.sum()) * (n - 1)
     nbytes = n * (8 + 4 + 1) + n * cfg.n_lp * 4
     call = lambda: ops.proximity_lp_counts(*args)  # noqa: E731
-    return {"n": n, "area": area, "range": rng, "max_abs_err": err,
-            "ms": time_ms(call),
+    return {"n": n, "area": area, "range": rng, "all_senders": all_senders,
+            "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "dense_lp_counts_kernel"),
             **call_profile(call),
             "plain_ms": time_ms(lambda: ref.dense_lp_counts_plain(*args),
                                 batch=1, warmup=1),
             **bound(nbytes, pairs * OPS_PER_PAIR), "pair_tests": pairs,
             "library_ms": None}
+
+
+def check_cell_sums(n, area, seed, dev, mobility="flock"):
+    """The flock's cell-sum kernel against its plain version (the
+    in-order CPU sum), bit for bit, on an exp6 flock world; the library
+    call is `index_add_` of the five quantities (atomics, in no fixed
+    order, so not the same bits)."""
+    from repro_torch.core import neighbors
+    from repro_torch.kernels.cell_sums import ops, ref
+    cfg, st = scenario_world(mobility, seed, dev, n_se=n, area=area)
+    pos, vec = st["pos"], st["mob"]
+    grid = neighbors.build_grid(pos, cfg.grid_spec())
+    got = ops.cell_sums(pos, vec, grid)
+    want = ref.cell_sums_plain(pos, vec, grid)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float((got - want).abs().max())
+    if not same:
+        raise AssertionError(f"cell_sums kernel at n={n}: not bit-equal "
+                             f"(max_abs_err={err})")
+    ncells = grid["starts"].shape[0]
+    vals = torch.stack([torch.ones_like(pos[:, 0]), pos[:, 0], pos[:, 1],
+                        vec[:, 0], vec[:, 1]])
+    acc = torch.zeros((5, ncells), dtype=torch.float32, device=dev)
+    cell = grid["cell"].long()
+    # pos, vec and order per SE, the CSR offsets, the five sums
+    nbytes = n * (8 + 8 + 8) + ncells * (16 + 20)
+    call = lambda: ops.cell_sums(pos, vec, grid)  # noqa: E731
+    return {"n": n, "area": area, "layout": mobility, "cells": ncells,
+            "max_cell": int(grid["counts"].max()), "max_abs_err": err,
+            "bit_equal": same, "ms": time_ms(call),
+            "kernel_device_ms": device_ms(call, "cell_sums_kernel"),
+            **call_profile(call),
+            "plain_ms": time_ms(lambda: ref.cell_sums_plain(pos, vec, grid),
+                                batch=1),
+            **bound(nbytes, 5 * n),
+            "library_ms": time_ms(lambda: acc.index_add_(1, cell, vals))}
+
+
+def check_capacity_assign(kind, seed, dev):
+    """The partitioners' capacity-assignment kernel (with its device
+    sort) against its plain version (a host loop), exactly, on the cost
+    matrices the partitioners give it on an exp6 hotspot world: kmeans'
+    squared distances to 4 centroids, bestresponse's negated affinities
+    on the stripe map."""
+    from repro_torch import random as trandom
+    from repro_torch.core import partition as part
+    from repro_torch.kernels.capacity_assign import ops, ref
+    from repro_torch.kernels.proximity import ops as prox
+    cfg, st = scenario_world("hotspot", seed, dev)
+    pos, n, L = st["pos"], cfg.n_se, cfg.n_lp
+    w = torch.ones(n, device=dev)
+    if kind == "kmeans":
+        cent = trandom.uniform(trandom.key(seed), (L, 2), maxval=cfg.area,
+                               device=dev)
+        cost = part._toroidal_dist2(pos, cent, cfg.area, True)
+    else:
+        lp = part.partition(None, pos, w, part.PartitionConfig(
+            backend="stripe"))
+        aff = prox.proximity_lp_counts(pos, lp, torch.ones_like(lp).bool(),
+                                       L, cfg.area, cfg.interaction_range)
+        cost = -aff.float()
+    caps = part.capacity_bounds(part.PartitionConfig(n_lp=L), n)
+    got = ops.capacity_assign(cost, w, caps)
+    want = ref.capacity_assign_plain(cost, w, caps)
+    torch.cuda.synchronize()
+    err = int((got.cpu() - want.cpu()).abs().max())
+    if err != 0:
+        raise AssertionError(f"capacity_assign kernel ({kind}): "
+                             f"max_abs_err={err}")
+    call = lambda: ops.capacity_assign(cost, w, caps)  # noqa: E731
+    # the costs and weights read once, the map written once; one
+    # comparison a pair
+    return {"n": n, "n_lp": L, "cost": kind, "max_abs_err": err,
+            "ms": time_ms(call, reps=10, batch=2),
+            "kernel_device_ms": device_ms(call, "capacity_assign_kernel"),
+            **call_profile(call),
+            "plain_ms": time_ms(lambda: ref.capacity_assign_plain(
+                cost, w, caps), reps=3, batch=1, warmup=1),
+            **bound(n * L * 4 + n * 8, n * L), "library_ms": None}
 
 
 def launch_floor():
@@ -855,32 +1003,186 @@ def scale(steps: int, dev):
         raise AssertionError("grid overflow in the 1M-SE window")
 
 
+#: phase cpu: the runs whose card and CPU trajectories are held bit for
+#: bit (integer series identical, positions within one ULP of area),
+#: and those whose agreement is measured (float matmuls and float32
+#: sin / cos / atan2 of the circular means, whose last bits differ
+#: between cuBLAS / CUDA and the CPU; the flock is listed with them as
+#: the reference's own float32 flock is not bitwise)
+CPU_EXACT = (("rwp", {}), ("epidemic", {}), ("hotspot", {}), ("group", {}),
+             ("trace", {}),
+             ("group", dict(partitioner="bestresponse", repartition_every=25)))
+CPU_MEASURED = (("flock", {}),
+                ("hotspot", dict(partitioner="kmeans", repartition_every=25)),
+                ("hotspot", dict(partitioner="voronoi",
+                                 repartition_every=25)))
+
+
 def card_vs_cpu(steps: int, dev):
-    from repro_torch.core import ABMConfig, EngineConfig
-    area = 4472.0  # 2,000 SEs at the paper's density of 1e-4 per unit^2
-    cfg = EngineConfig(abm=ABMConfig(n_se=2000, area=area), timesteps=steps)
-    gst, gser, _, _ = run_engine(cfg, dev)
+    """Each scenario at 2,000 SEs (area 4,472, the paper's density) on
+    the card and on the CPU, from the same seed."""
     from repro_torch.core import Engine
-    cst, cser, _ = Engine(cfg, device="cpu").run(seed=0)
-    bad = [k for k in cser if not torch.equal(gser[k].cpu(), cser[k])]
-    gap = float((gst["pos"].cpu() - cst["pos"]).abs().max())
-    ulps = gap / (area * ULP)
-    same = {k: torch.equal(gst[k].cpu(), cst[k])
-            for k in ("lp", "waypoint", "pending_dst", "ring")}
-    emit(phase="cpu", n_se=2000, steps=steps, series_mismatch=bad,
-         max_pos_gap=gap, max_pos_gap_area_ulps=ulps, state_equal=same)
-    if bad or ulps > 1.0 or not all(same.values()):
-        raise AssertionError("the card's run differs from the CPU's")
+    area = 4472.0
+    bad_runs = []
+    for exact, runs in ((True, CPU_EXACT), (False, CPU_MEASURED)):
+        for scenario, kw in runs:
+            cfg = exp6_cfg(scenario, steps, n=2000, area=area, **kw)
+            gst, gser, _, _ = run_engine(cfg, dev)
+            cst, cser, _ = Engine(cfg, device="cpu").run(seed=0)
+            bad = [k for k in cser if not torch.equal(gser[k].cpu(), cser[k])]
+            first = {k: int((gser[k].cpu() != cser[k]).reshape(steps, -1)
+                            .any(1).nonzero()[0]) for k in bad}
+            gap = float((gst["pos"].cpu() - cst["pos"]).abs().max())
+            ulps = gap / (area * ULP)
+            same = {k: torch.equal(gst[k].cpu(), cst[k])
+                    for k in ("lp", "waypoint", "mob", "pending_dst", "ring")}
+            name = scenario + (f"+{kw['partitioner']}" if kw else "")
+            emit(phase="cpu", run=name, held="bitwise" if exact
+                 else "measured", n_se=2000, steps=steps,
+                 series_mismatch=bad, first_mismatch_step=first,
+                 lp_agreement=float((gst["lp"].cpu() == cst["lp"])
+                                    .float().mean()),
+                 max_pos_gap=gap, max_pos_gap_area_ulps=ulps,
+                 state_equal=same)
+            if exact and (bad or ulps > 1.0 or not all(same.values())):
+                bad_runs.append(name)
+    if bad_runs:
+        raise AssertionError(f"the card's run differs from the CPU's: "
+                             f"{bad_runs}")
 
 
-def profile(steps: int, dev):
-    """Where a step of the default config spends its time."""
+def exp6_trace(n: int, area: float, steps: int) -> str:
+    """Register exp6's commuter trace (8 hubs, seed 0, steps + 1 frames,
+    so `exact` covers the run) and return its name. At exp6's full
+    spec a few float32 frame values round up to `area` itself, which
+    both packages' `synthetic_trace` reject; they are folded to the
+    largest float32 below `area` (the torus point they stand for)."""
+    import numpy as np
+
+    from repro_torch.data import pipeline as dpipe
+    name = f"exp6-{n}-{steps}"
+    if name not in dpipe.trace_names():
+        frames = dpipe.commute_frames(dpipe.TraceSpec(
+            n_se=n, area=area, timesteps=steps + 1,
+            speed=11.0 * area / 10_000.0, n_hubs=8, seed=0))
+        top = np.nextafter(np.float32(area), np.float32(0))
+        folded = int((frames >= area).sum())
+        frames = np.where(frames >= area, top, frames)
+        dpipe.register_trace(name, dpipe.Trace(frames, area))
+        emit(phase="scenarios", trace=name, frames=frames.shape[0],
+             values_folded_below_area=folded)
+    return name
+
+
+def exp6_cfg(scenario: str, steps: int, n: int = 10_000,
+             area: float = 10_000.0, partitioner: str = "random",
+             repartition_every: int = 0):
+    """benchmarks/exp6_scenarios.py's `scenario_cfg` (and exp7's
+    `exp_cfg`), GAIA on: 4 LPs, range 250, p_interact 0.2, 8 groups of
+    radius 250, MF 1.2, MT 10; speed 11 at area 10,000, scaled with
+    the area."""
+    from repro_torch.core import ABMConfig, EngineConfig, HeuristicConfig
+    abm = dict(n_se=n, n_lp=4, area=area, speed=11.0 * area / 10_000.0,
+               interaction_range=250.0, p_interact=0.2, mobility=scenario,
+               n_groups=8, group_radius=250.0, partitioner=partitioner)
+    if scenario == "trace":
+        abm.update(trace_name=exp6_trace(n, area, steps),
+                   trace_policy="exact")
+    elif scenario == "epidemic":
+        abm.update(mobility="rwp", **EPI)
+    return EngineConfig(abm=ABMConfig(**abm),
+                        heuristic=HeuristicConfig(mf=1.2, mt=10),
+                        timesteps=steps, repartition_every=repartition_every)
+
+
+def scenarios(epi_steps: int, steps: int, dev):
+    """exp6's scenario fleet and exp7's periodic kmeans at full width
+    (10k SEs, area 10,000), GAIA on, through `Engine` on the card. Each
+    run: s/step, LCR, migrations, the grid_overflow sum (must be 0),
+    the kernels' launches (counts set to 0 just before the run and read
+    just after; the epidemic must launch the cell-list kernel twice a
+    step, flock the cell-sum kernel once, kmeans the capacity-assign
+    kernel 9 times a partition), and the run priced on the four
+    environments (`wct_env`, exp6's message sizes). Then one
+    `bestresponse` init: 8 dense and 8 capacity-assign launches."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import build as kbuild
+    runs = [("epidemic", epi_steps, {}), ("hotspot", steps, {}),
+            ("group", steps, {}), ("flock", steps, {}), ("trace", steps, {}),
+            ("hotspot", steps, dict(partitioner="kmeans",
+                                    repartition_every=100))]
+    launches = {}
+    for scenario, n_steps, kw in runs:
+        cfg = exp6_cfg(scenario, n_steps, **kw)
+        kbuild.reset_launches()
+        st, series, c, sec = run_engine(cfg, dev)
+        got = kbuild.launches()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        name = scenario + (f"+{kw['partitioner']}/{kw['repartition_every']}"
+                           if kw else "")
+        row = {"run": name, "steps": n_steps, "s_per_step": sec / n_steps,
+               "mean_lcr": c["mean_lcr"], "migrations": c["migrations"],
+               "repartitions": c["repartitions"],
+               "grid_overflow": c["grid_overflow"], "launches": got,
+               "wct_env_s": {k: cm.wct_env(
+                   c, cm.DISTRIBUTED, cm.make_env(k, 4), n_steps,
+                   interaction_bytes=100, migration_bytes=256)["TEC"]
+                   for k in ENVS}}
+        if scenario == "epidemic":
+            inf = series["infected"].cpu()
+            row.update(infected_first=float(inf[0]),
+                       infected_last=float(inf[-1]))
+        emit(phase="scenarios", **row)
+        want_grid = (2 if scenario == "epidemic" else 1) * n_steps
+        if c["grid_overflow"] != 0:
+            raise AssertionError(f"{name}: grid overflow")
+        if got["proximity_grid"] != want_grid:
+            raise AssertionError(f"{name}: {got['proximity_grid']} cell-list "
+                                 f"launches, want {want_grid}")
+        if scenario == "flock" and got["cell_sums"] != n_steps:
+            raise AssertionError(f"flock: {got['cell_sums']} cell-sum "
+                                 f"launches, want {n_steps}")
+        if kw and c["repartitions"] <= 0:
+            raise AssertionError(f"{name}: no repartition fired")
+        # kmeans: 9 scans a partition, at init and at each repartition
+        want_ca = 9 * (1 + (n_steps - 1) // kw["repartition_every"]) \
+            if kw else 0
+        if got["capacity_assign"] != want_ca:
+            raise AssertionError(f"{name}: {got['capacity_assign']} "
+                                 f"capacity-assign launches, want {want_ca}")
+    from repro_torch.core import Engine
+    cfg = exp6_cfg("hotspot", 1, partitioner="bestresponse")
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device=dev).init(seed=0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = kbuild.launches()
+    dense, scans = got["proximity_dense"], got["capacity_assign"]
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    from repro_torch.core.balance import bincount
+    pop = bincount(eng.state["lp"], 4).tolist()
+    emit(phase="scenarios", run="bestresponse init", s=sec,
+         dense_launches=dense, capacity_assign_launches=scans,
+         population=pop)
+    if dense != 8 or scans != 8 or pop != [cfg.abm.n_se // 4] * 4:
+        raise AssertionError(f"bestresponse init: {dense} dense and {scans} "
+                             f"capacity-assign launches, populations {pop}")
+    return launches
+
+
+def profile(steps: int, dev, scenario: str = ""):
+    """Where a step of the default config (or of an exp6 scenario at
+    full width) spends its time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     from repro_torch.core import Engine, EngineConfig
     from repro_torch.core import engine as teng
-    cfg = EngineConfig()
+    cfg = exp6_cfg(scenario, 2 * steps + 5) if scenario else EngineConfig()
     eng = Engine(cfg, device=dev).init(seed=0)
     eng.step(5)
     state, phases = eng.state, teng.step_phases(cfg)
@@ -922,7 +1224,8 @@ def profile(steps: int, dev):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     busy_ms = busy / steps / 1e3
-    emit(phase="profile", config="EngineConfig()", steps=steps,
+    emit(phase="profile", config=f"exp6 {scenario}" if scenario
+         else "EngineConfig()", steps=steps,
          phase_ms_median={k: statistics.median(v)
                           for k, v in per_phase.items()},
          untraced_ms_per_step=step_ms,
@@ -940,10 +1243,17 @@ def main():
     p.add_argument("--dense-steps", type=int, default=200)
     p.add_argument("--scale-steps", type=int, default=20)
     p.add_argument("--cpu-steps", type=int, default=100)
+    p.add_argument("--epi-steps", type=int, default=1200,
+                   help="steps of the scenarios phase's epidemic run")
+    p.add_argument("--scenario-steps", type=int, default=300,
+                   help="steps of the scenarios phase's other runs")
     p.add_argument("--gen", type=int, default=64,
                    help="decode steps of the serve phase")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
                    help="trace STEPS steps of the default config instead")
+    p.add_argument("--scenario", default="", choices=(
+        "", "epidemic", "hotspot", "group", "flock", "trace"),
+        help="with --profile: an exp6 scenario at full width instead")
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
@@ -954,25 +1264,52 @@ def main():
     smi = card()
     build()
     if a.profile:
-        profile(a.profile, dev)
+        profile(a.profile, dev, a.scenario)
         return
     if a.profile_serve:
         profile_serve(a.profile_serve, dev)
         return
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    t_kernels = time.perf_counter()
     launch_floor()
     shapes = {"grid": [check_grid(10_000, 10_000.0, 250.0, 1, dev),
                        check_grid(1_000_000, 100_000.0, 250.0, 2, dev),
                        check_grid(10_000, 10_000.0, 250.0, 5, dev,
-                                  layout="clustered")],
+                                  layout="clustered"),
+                       check_grid(10_000, 10_000.0, 250.0, 6, dev,
+                                  layout="epidemic"),
+                       check_grid(10_000, 10_000.0, 250.0, 7, dev,
+                                  layout="hotspot")],
               "dense": [check_dense(2_000, 600.0, 250.0, 3, dev),
-                        check_dense(10_000, 10_000.0, 250.0, 4, dev)],
+                        check_dense(10_000, 10_000.0, 250.0, 4, dev),
+                        check_dense(10_000, 10_000.0, 250.0, 8, dev,
+                                    all_senders=True)],
+              "cell_sums": [check_cell_sums(10_000, 10_000.0, 9, dev),
+                            check_cell_sums(10_000, 10_000.0, 10, dev,
+                                            mobility="hotspot")],
+              "capacity_assign": [check_capacity_assign("kmeans", 11, dev),
+                                  check_capacity_assign("bestresponse", 12,
+                                                        dev)],
               **check_lm_kernels(dev)}
     emit(phase="kernels_checked", shapes=shapes)
-    served = serve_phase(a.gen, dev)
-    launches = main_path(a.steps, a.dense_steps, dev)
-    scale(a.scale_steps, dev)
-    card_vs_cpu(a.cpu_steps, dev)
-    serve_cpu_phase(dev)
+    seconds["kernels"] = time.perf_counter() - t_kernels
+    served = timed("serve", serve_phase, a.gen, dev)
+    launches = timed("main", main_path, a.steps, a.dense_steps, dev)
+    scenario_launches = timed("scenarios", scenarios, a.epi_steps,
+                              a.scenario_steps, dev)
+    for stem in ("cell_sums", "capacity_assign"):
+        launches[stem] = scenario_launches[stem]
+    timed("scale", scale, a.scale_steps, dev)
+    timed("cpu", card_vs_cpu, a.cpu_steps, dev)
+    timed("serve_cpu", serve_cpu_phase, dev)
+    emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
     meta = {
@@ -992,6 +1329,15 @@ def main():
         "flash_decode": ("flash_decode", "flash_decode",
                          src + "flash_decode/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode/flash_decode.py:60"),
+        # a port-only kernel: it replaces the reference's jnp scatter-add
+        # `bin2d` of cell_block_mean, not a Pallas kernel
+        "cell_sums": ("cell_sums", "cell_sums",
+                      src + "cell_sums/csrc/cell_sums.cu",
+                      "src/repro/core/neighbors.py:510"),
+        # port-only too: the `lax.scan` of partition.capacity_assign
+        "capacity_assign": ("capacity_assign", "capacity_assign",
+                            src + "capacity_assign/csrc/capacity_assign.cu",
+                            "src/repro/core/partition.py:178"),
     }
     kernels = []
     for k, (name, stem, source, replaces) in meta.items():
@@ -999,6 +1345,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[stem],
+            "scenario_launches": scenario_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

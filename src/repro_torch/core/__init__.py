@@ -1,11 +1,12 @@
-"""GAIA self-clustering core, ported to PyTorch (main path: one
-closed-world replica of the rwp model).
+"""GAIA self-clustering core, ported to PyTorch: one closed-world
+replica of the evaluation model, every mobility model and workload.
 
-- abm: the evaluation model, §5.1 (rwp mobility + proximity counts)
+- abm: the evaluation model, §5.1 (mobility models, the epidemic
+  workload, proximity counts)
 - neighbors: cell-list neighbor search behind the proximity hot spot
 - heuristics: self-clustering heuristics #1/#2/#3, §4.3
 - balance: symmetric/asymmetric load balancing, §4.4
-- partition: the initial SE -> LP map ("random")
+- partition: the SE -> LP partitioners (initial and periodic)
 - engine: the timestepped adaptive-partitioning engine, §4
 - service: the `Engine` facade (init / step / run / metrics)
 - costmodel, stats: host-only copies of the reference's modules
@@ -14,7 +15,8 @@ from repro_torch.core.abm import (ABMConfig, MOBILITY_MODELS,  # noqa: F401
                                   PROXIMITY_BACKENDS)
 from repro_torch.core.costmodel import (DISTRIBUTED, PARALLEL,  # noqa: F401
                                         SETUPS, CostParams,
-                                        ExecutionEnvironment, wct)
+                                        ExecutionEnvironment, make_env, wct,
+                                        wct_env)
 from repro_torch.core.engine import (EngineConfig,  # noqa: F401
                                      state_from_numpy, state_to_numpy)
 from repro_torch.core.heuristics import HeuristicConfig  # noqa: F401
@@ -31,7 +33,7 @@ __all__ = [
     "Engine", "ReplicaService",
     "MOBILITY_MODELS", "PROXIMITY_BACKENDS", "PARTITION_BACKENDS",
     "SETUPS", "DISTRIBUTED", "PARALLEL", "CostParams",
-    "ExecutionEnvironment", "wct",
+    "ExecutionEnvironment", "make_env", "wct", "wct_env",
     "GridSpec", "build_grid", "grid_lp_counts", "make_grid_spec",
     "state_from_numpy", "state_to_numpy",
     "merge_counters", "replica_stats", "summarize",

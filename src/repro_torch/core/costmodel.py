@@ -1,6 +1,6 @@
 """The paper's cost analysis (§3, Eqs. 1-6) as an executable model — the
-port's own copy of the part of `repro.core.costmodel` this slice uses
-(`SETUPS`, `wct`, `ExecutionEnvironment`); host-only Python.
+port's own copy of `repro.core.costmodel`; host-only Python and numpy,
+so its floats equal the reference's.
 
     TEC = MCC/f(N) + (SC + LCC + RCC + MMC) + MigC          (Eq. 5)
     MigC = MigCPU + MigComm + Heu                           (Eq. 6)
@@ -18,13 +18,16 @@ paper's tables (latency-dominated remote messages on the LAN; memory-
 bandwidth-bound local delivery in shared memory).
 
 `ExecutionEnvironment` describes a heterogeneous cluster (per-LP speed
-factors and a pairwise link-class matrix); its pricing (`wct_env`) comes
-with a later slice.
+factors and a pairwise link-class matrix); `wct_env` prices a run's
+per-pair flow counters on one, and `make_env` builds the presets
+("shm", "lan", "wan2", "hetero").
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +153,11 @@ LINK_CLASSES: Dict[str, LinkClass] = {
 }
 
 
+#: per-timestep barrier cost of a WAN-crossing synchronization (RTT-
+#: dominated; ~order 10 ms round trips per timestepped barrier)
+WAN_SYNC_S = 2.0e-2
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionEnvironment:
     """A heterogeneous cluster: per-LP speed factors and a pairwise
@@ -185,3 +193,159 @@ class ExecutionEnvironment:
         = relative PEU speed)."""
         tot = sum(self.speed)
         return tuple(s / tot for s in self.speed)
+
+
+def homogeneous_env(n_lp: int, link: str = "shm",
+                    name: Optional[str] = None) -> ExecutionEnvironment:
+    """All LPs equal, one link class everywhere (diag is intra-LP)."""
+    row = (link,) * n_lp
+    return ExecutionEnvironment(name=name or f"homog-{link}",
+                                speed=(1.0,) * n_lp,
+                                link=(row,) * n_lp)
+
+
+def two_site_env(n_lp: int, intra: str = "lan", cross: str = "wan",
+                 split: Optional[int] = None,
+                 speed: Optional[Tuple[float, ...]] = None,
+                 name: Optional[str] = None) -> ExecutionEnvironment:
+    """LPs [0, split) on site A, the rest on site B: `intra` links
+    within a site, `cross` links between sites, WAN barrier cost when
+    the cross link is WAN."""
+    split = n_lp // 2 if split is None else split
+    site = [0 if l < split else 1 for l in range(n_lp)]
+    link = tuple(tuple(intra if site[s] == site[d] else cross
+                       for d in range(n_lp)) for s in range(n_lp))
+    return ExecutionEnvironment(
+        name=name or f"two-site-{intra}-{cross}",
+        speed=speed or (1.0,) * n_lp, link=link,
+        t_sync=WAN_SYNC_S if cross == "wan" else None)
+
+
+def hetero_speed_env(n_lp: int, link: str = "lan",
+                     name: Optional[str] = None) -> ExecutionEnvironment:
+    """One link class, but PEU speeds spanning 4x (fast half, slow
+    tail) — the pure compute-heterogeneity case for the asymmetric
+    balancer."""
+    pattern = (2.0, 1.0, 1.0, 0.5)
+    speed = tuple(pattern[l % len(pattern)] for l in range(n_lp))
+    row = (link,) * n_lp
+    return ExecutionEnvironment(name=name or f"hetero-{link}", speed=speed,
+                                link=(row,) * n_lp)
+
+
+ENV_PRESETS = {
+    "shm": homogeneous_env,
+    "lan": lambda n_lp: homogeneous_env(n_lp, link="lan", name="lan"),
+    "wan2": lambda n_lp: two_site_env(n_lp, name="wan2"),
+    "hetero": hetero_speed_env,
+}
+
+
+def make_env(kind: str, n_lp: int) -> ExecutionEnvironment:
+    """Build a preset environment ("shm" | "lan" | "wan2" | "hetero")."""
+    if kind not in ENV_PRESETS:
+        raise ValueError(f"env kind {kind!r} not in {sorted(ENV_PRESETS)}")
+    return ENV_PRESETS[kind](n_lp)
+
+
+def wire_cost(wire_flows, env: ExecutionEnvironment) -> float:
+    """Price a sharded run's *physical* transport on `env`: the engine's
+    `wire_flows` counter is the (n_dev, n_dev) matrix of useful payload
+    bytes each device pair exchanged (sparse halo rows + migrated SE
+    rows + reconstruction gathers — see lp_shard's wire accounting).
+    Devices host contiguous LP blocks (`lp_shard.dev_of_lp`), so a
+    device pair is priced with the link class joining the first LPs of
+    the two blocks. Returns seconds of bandwidth cost (the per-timestep
+    marshaling/latency already rides in SC/RCC)."""
+    w = np.asarray(wire_flows, dtype=np.float64)
+    if w.ndim != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"wire_flows must be square, got {w.shape}")
+    n_dev = w.shape[0]
+    L = env.n_lp
+    if n_dev > L:
+        raise ValueError(f"wire_flows has {n_dev} devices but env has "
+                         f"only {L} LPs")
+    first_lp = [-(-a * L // n_dev) for a in range(n_dev)]
+    return sum(
+        w[a, b] * LINK_CLASSES[env.link[first_lp[a]][first_lp[b]]].t_byte
+        for a in range(n_dev) for b in range(n_dev)
+        if a != b and w[a, b])
+
+
+def wct_env(counters: Dict, p: CostParams, env: ExecutionEnvironment,
+            timesteps: int, interaction_bytes: int = 1,
+            migration_bytes: int = 32) -> Dict[str, float]:
+    """Heterogeneous Eq. 5/6: price engine counters on `env`.
+
+    Requires the engine's per-pair counters: `lp_flows` (L, L) delivered
+    interactions src->dst and (optionally) `mig_flows` (L, L) migrations
+    src->dst; the scalar keys are as in `wct`. Differences from the
+    scalar model:
+
+      * LCC/RCC price each (s, d) flow with that pair's link class;
+      * MCC is the per-LP bottleneck: each LP's delivered events cost
+        t_event_cpu / speed[l], the serial fraction of the total work is
+        unparallelizable, the rest finishes when the slowest LP does
+        (reduces to Amdahl on balanced, equal-speed LPs);
+      * MigComm prices each migration on its pair's link (falling back
+        to the most expensive link present if only the scalar
+        `migrations` counter is available);
+      * SC uses env.t_sync when set (WAN barriers are RTT-dominated);
+      * when the sharded engine's `wire_flows` counter is present, its
+        measured per-device-pair bytes are priced by `wire_cost` and
+        reported as `WireC`. WireC is the physical-transport view of
+        the same traffic RCC/MigComm estimate from logical message
+        counts, so it is reported alongside TEC rather than added to
+        it (summing both would double-count the interaction payload).
+    """
+    L = env.n_lp
+    flows = np.asarray(counters["lp_flows"], dtype=np.float64)
+    if flows.shape != (L, L):
+        raise ValueError(f"lp_flows shape {flows.shape} != ({L}, {L})")
+    links = [[None if s == d else LINK_CLASSES[env.link[s][d]]
+              for d in range(L)] for s in range(L)]
+
+    lcc = float(np.trace(flows)) * (p.t_local_msg
+                                    + interaction_bytes * p.t_local_byte)
+    rcc = sum(flows[s, d] * (links[s][d].t_msg
+                             + interaction_bytes * links[s][d].t_byte)
+              for s in range(L) for d in range(L) if s != d)
+
+    per_lp = flows.sum(axis=0) * p.t_event_cpu / np.asarray(env.speed)
+    work = float(per_lp.sum())
+    mcc = p.serial_frac * work + (1.0 - p.serial_frac) * float(per_lp.max())
+
+    sc = timesteps * (p.t_sync if env.t_sync is None else env.t_sync)
+    mmc = timesteps * p.t_mmc
+
+    if "mig_flows" in counters:
+        mf = np.asarray(counters["mig_flows"], dtype=np.float64)
+        migs = float(mf.sum())
+        mig_comm = sum(
+            mf[s, d] * (links[s][d].t_msg + migration_bytes
+                        * links[s][d].t_byte)
+            for s in range(L) for d in range(L) if s != d)
+    else:
+        migs = float(counters["migrations"])
+        remote_links = [links[s][d] for s in range(L) for d in range(L)
+                        if s != d]
+        if migs and remote_links:
+            worst = max(remote_links, key=lambda c: c.t_msg)
+            mig_comm = migs * (worst.t_msg + migration_bytes * worst.t_byte)
+        else:  # no migrations, or a 1-LP env with nowhere to migrate
+            mig_comm = 0.0
+    mig_cpu = migs * p.t_mig_cpu
+    heu = float(counters["heu_evals"]) * p.t_heu
+
+    wirec = (wire_cost(counters["wire_flows"], env)
+             if "wire_flows" in counters else 0.0)
+
+    total = mcc + lcc + rcc + sc + mmc + mig_cpu + mig_comm + heu
+    return {
+        "MCC": mcc, "LCC": lcc, "RCC": float(rcc), "SC": sc, "MMC": mmc,
+        "MigCPU": mig_cpu, "MigComm": float(mig_comm), "Heu": heu,
+        "MigC": mig_cpu + float(mig_comm) + heu,
+        "TEC": total,
+        "WireC": float(wirec),
+        "per_lp_compute_s": per_lp.tolist(),
+    }

@@ -3,12 +3,16 @@
 
 One step = one simulation timestep, cut into the reference's phases:
 
-  migrate     apply migrations whose protocol delay has elapsed
-  mobility    move agents (RWP) and draw this step's senders
-  proximity   per-sender histogram of recipient LPs (the hot spot)
-  accounting  the LP-pair flow matrix: local vs remote deliveries
-  heuristic   window update, evaluation, balancing, admission (GAIA on)
-  finalize    the new state and the step's metrics
+  migrate      apply migrations whose protocol delay has elapsed
+  mobility     move agents and draw this step's senders
+  proximity    per-sender histogram of recipient LPs (the hot spot)
+  workload     the epidemic's exposure sweep and SI/SIS update (epidemic
+               only; it reuses the proximity phase's grid)
+  accounting   the LP-pair flow matrix: local vs remote deliveries
+  repartition  every `repartition_every` steps, the partitioner's new
+               map enters the migration machinery
+  heuristic    window update, evaluation, balancing, admission (GAIA on)
+  finalize     the new state and the step's metrics
 
 The reference's compiled `lax.scan` becomes a Python loop over steps.
 Every phase stays on the device: a step makes no host sync, and the
@@ -31,9 +35,13 @@ from repro_torch import random as trandom
 from repro_torch.core import balance as bal
 from repro_torch.core import heuristics as heu
 from repro_torch.core import partition as part
-from repro_torch.core.abm import (ABMConfig, init_abm,
+from repro_torch.core.abm import (ABMConfig, check_trace_horizon,
+                                  epidemic_draws,
+                                  epidemic_exposure_overflow,
+                                  epidemic_row_update, epidemic_send_prob,
+                                  infection_table, init_abm,
                                   interaction_counts_overflow,
-                                  mobility_step)
+                                  mobility_step, proximity_grid)
 from repro_torch.core.costmodel import ExecutionEnvironment
 from repro_torch.core.heuristics import HeuristicConfig
 from repro_torch.fp32 import div32
@@ -41,9 +49,12 @@ from repro_torch.obs.config import ObsConfig
 
 SHARDINGS = ("none", "lp_device")
 
-#: the ROADMAP.md items that bring what this slice does not run
+#: PRNG salt of the periodic-repartition stream, folded into the step's
+#: k_move
+REPART_SALT = 0x7a47
+
+#: the ROADMAP.md items that bring what the port does not run yet
 LATER = {
-    "scenarios": part.LATER,
     "replicas": "ROADMAP.md queue 1, item 7 (replica batching and "
                 "self-tuning)",
     "service": "ROADMAP.md queue 1, item 8 (core/service.py)",
@@ -123,10 +134,6 @@ class EngineConfig:
         for bad, what, item in (
                 (self.sharding == "lp_device", "sharding='lp_device'",
                  "sharding"),
-                (self.repartition_every > 0, "repartition_every > 0",
-                 "scenarios"),
-                (self.env is not None, "an ExecutionEnvironment `env`",
-                 "scenarios"),
                 (self.open_world, "open_world=True", "service"),
                 (self.obs.enabled, "obs.enabled=True", "obs")):
             if bad:
@@ -184,14 +191,34 @@ def step_phases(cfg: EngineConfig):
         pos, wp, mob, mob_g = mobility_step(
             px["k_move"], st["pos"], st["waypoint"], st["mob"],
             st["mob_g"], cfg.abm)
-        sender = trandom.bernoulli(px["k_send"], cfg.abm.p_interact, (n,),
-                                   device=pos.device)
+        if cfg.abm.workload == "epidemic":
+            # last step's infectious SEs send epi_boost x more often
+            sender = trandom.uniform(px["k_send"], (n,), device=pos.device) \
+                < epidemic_send_prob(st["epi"], cfg.abm)
+        else:
+            sender = trandom.bernoulli(px["k_send"], cfg.abm.p_interact,
+                                       (n,), device=pos.device)
         return dict(px, pos=pos, wp=wp, mob=mob, mob_g=mob_g, sender=sender)
 
     def ph_proximity(px):
+        grid = proximity_grid(px["pos"], cfg.abm)
         counts, grid_ovf = interaction_counts_overflow(
-            px["pos"], px["lp"], px["sender"], cfg.abm)
-        return dict(px, counts=counts, grid_ovf=grid_ovf)
+            px["pos"], px["lp"], px["sender"], cfg.abm, grid=grid)
+        return dict(px, counts=counts, grid_ovf=grid_ovf, grid=grid)
+
+    def ph_workload(px):
+        # susceptible SEs count the in-range infectious rows that sent
+        # this step (the proximity kernels with 0/1 labels, over the
+        # proximity phase's grid) and run the SI/SIS transition
+        epi, pos = px["st"]["epi"], px["pos"]
+        labels = ((epi > 0) & px["sender"]).to(torch.int32)
+        exposure, ovf = epidemic_exposure_overflow(
+            pos, labels, epi == 0, cfg.abm, grid=px["grid"])
+        draws = epidemic_draws(px["k_move"], n, cfg.abm, pos.device)
+        epi = epidemic_row_update(epi, exposure, draws, cfg.abm,
+                                  infection_table(cfg.abm, pos.device))
+        return dict(px, epi=epi, infected=(epi > 0).sum(dtype=torch.int32),
+                    grid_ovf=px["grid_ovf"] | ovf)
 
     def ph_account(px):
         # the per-pair flow matrix (src LP -> dst LP) is the single
@@ -209,6 +236,34 @@ def step_phases(cfg: EngineConfig):
                                                "last_mig")},
                     migs=zero, n_evals=zero, reparts=zero,
                     mig_flows=torch.zeros_like(flows))
+
+    def ph_repartition(px):
+        # every R steps the partitioner recomputes the global map from
+        # the current geometry; the delta enters the in-flight migration
+        # machinery (SEs already in flight are skipped)
+        t = px["t"]
+        if t == 0 or t % cfg.repartition_every:
+            return px
+        lp, pos = px["lp"], px["pos"]
+        pending_dst = px["pending_dst"]
+        pcfg = part.from_engine(cfg)
+        new_lp = part.partition(
+            trandom.fold_in(px["k_move"], REPART_SALT), pos,
+            torch.ones((n,), dtype=torch.float32, device=pos.device), pcfg,
+            prev=lp if part.uses_prev(pcfg) else None, compiled=True)
+        move = (new_lp != lp) & (pending_dst < 0)
+        reparts = move.sum(dtype=torch.int32)
+        mig_flows = px["mig_flows"].index_put(
+            (lp.long(), new_lp.long()), move.to(torch.int32),
+            accumulate=True)
+        return dict(px, pending_dst=torch.where(move, new_lp, pending_dst),
+                    pending_eta=torch.where(
+                        move, i32(t + cfg.migration_delay, lp),
+                        px["pending_eta"]),
+                    hstate=dict(px["hstate"], last_mig=torch.where(
+                        move, i32(t, lp), px["hstate"]["last_mig"])),
+                    reparts=reparts, migs=px["migs"] + reparts,
+                    mig_flows=mig_flows)
 
     def ph_heuristic(px):
         lp, t = px["lp"], px["t"]
@@ -259,10 +314,17 @@ def step_phases(cfg: EngineConfig):
             "repartitions": px["reparts"].float(),
             "grid_overflow": px["grid_ovf"].float(),
         }
+        if cfg.abm.workload == "epidemic":
+            new_state["epi"] = px["epi"]
+            metrics["infected"] = px["infected"].float()
         return dict(px, new_state=new_state, metrics=metrics)
 
     phases = [("migrate", ph_migrate), ("mobility", ph_mobility),
               ("proximity", ph_proximity), ("accounting", ph_account)]
+    if cfg.abm.workload == "epidemic":
+        phases.insert(3, ("workload", ph_workload))
+    if cfg.repartition_every > 0:
+        phases.append(("repartition", ph_repartition))
     if cfg.gaia_on:
         phases.append(("heuristic", ph_heuristic))
     phases.append(("finalize", ph_finalize))
@@ -286,6 +348,9 @@ def series_counters(series) -> dict:
     counters = {k: float(series[k].sum()) for k in
                 ("local_msgs", "remote_msgs", "migrations", "heu_evals")}
     counters["mean_lcr"] = float(series["lcr"].mean())
+    if "infected" in series:
+        counters["mean_infected"] = float(series["infected"].mean())
+        counters["final_infected"] = float(series["infected"][-1])
     for k in ("grid_overflow", "repartitions"):
         counters[k] = float(series[k].sum())
     for k in ("lp_flows", "mig_flows"):
@@ -309,7 +374,9 @@ def _run_steps(state, cfg: EngineConfig, n_steps: int, mf=None):
 
 
 def _run_window(state, cfg: EngineConfig, n_steps: int, mf=None):
-    """Advance an existing state by n_steps; returns (state, counters)."""
+    """Advance an existing state by n_steps; returns (state, counters).
+    Under trace_policy='exact' the window's frames are checked first."""
+    check_trace_horizon(cfg.abm, state["t"], n_steps)
     state, series = _run_steps(state, cfg, n_steps, mf=mf)
     return state, series_counters(series)
 
@@ -322,6 +389,7 @@ def _migration_ratio(counters, cfg: EngineConfig) -> float:
 def _run(key, cfg: EngineConfig, device):
     """Run the full simulation; returns (final_state, stacked metrics,
     aggregate counters)."""
+    check_trace_horizon(cfg.abm, 0, cfg.timesteps)
     st = _init_engine(key, cfg, device)
     st, series = _run_steps(st, cfg, cfg.timesteps)
     counters = series_counters(series)

@@ -1,11 +1,13 @@
 """Spatial-grid (cell-list) neighbor search on the toroidal square.
 
-The port of `repro.core.neighbors`, main-path subset: the grid geometry
-and capacity math, the binning, the CSR grid build, and the plain
-PyTorch sweeps that count, for each sender, the recipients on each LP
-within range. On the card the engine does not run these sweeps: it
-hands the grid to the hand-written kernels in
-`repro_torch.kernels.proximity`, whose plain versions delegate here.
+The port of `repro.core.neighbors`, without the open-world and sharded
+helpers: the grid geometry and capacity math (uniform and clustered),
+the binning, the CSR grid build, the plain PyTorch sweeps that count,
+for each sender, the recipients on each LP within range, and the
+flock's 3x3 block means. On the card the engine does not run these
+sweeps: it hands the grid to the hand-written kernels in
+`repro_torch.kernels.proximity` (whose plain versions delegate here)
+and `repro_torch.kernels.cell_sums`.
 
 Parity with the reference's compiled program, bit for bit:
 
@@ -25,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.fp32 import f32, fma32
+from repro_torch.fp32 import div32, f32, fma32
+from repro_torch.kernels.cell_sums import ops as cell_sums_ops
 
 #: offsets of the 3x3 neighborhood, row-major
 NEIGH_OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
@@ -93,6 +96,20 @@ def default_capacity(n: int, ncell: int) -> int:
     return int(math.ceil(mean + 8.0 * math.sqrt(mean) + 8.0))
 
 
+def clustered_capacity(n: int, ncell: int, cell: float, n_clusters: int,
+                       radius: float) -> int:
+    """Static per-cell capacity bound for K-blob clustered placement:
+    the blob population times the share of the blob one cell covers,
+    times 3 (two blobs on one cell, center peaking), plus the uniform
+    terms. An underestimate trips `grid_overflow`."""
+    per_blob = -(-n // max(n_clusters, 1))
+    blob_area = math.pi * max(radius, cell / 2.0) ** 2
+    peak = 3.0 * per_blob * min(1.0, cell * cell / blob_area)
+    mean = n / float(ncell * ncell)
+    return min(n, int(math.ceil(peak + mean + 8.0 * math.sqrt(max(mean, 1.0))
+                                + 16.0)))
+
+
 @dataclasses.dataclass(frozen=True)
 class GridSpec:
     """Static geometry of the cell grid."""
@@ -146,13 +163,18 @@ def rows_grid_counts(pos, lp, n_lp: int, area: float, rng: float,
                      budget_entries: int = 0):
     """Cell-list counts for a row subset against a prebuilt grid, via
     the CSR segment sweep: for each of the 9 neighbor cells every row
-    reads one `capacity`-wide window of the sorted order, masked by the
-    segment's count, and folds the in-range tests into its histogram.
-    Rows go in chunks of at most `budget_entries // capacity`."""
+    reads one window of the sorted order, masked by the segment's count
+    (cut at `capacity`), and folds the in-range tests into its
+    histogram.
+    Rows go in chunks of at most `budget_entries // window`, where the
+    window is the fullest segment's count (at most `capacity`): slots
+    past a segment's count are masked anyway, so a clustered world's
+    large capacity costs nothing where its cells are sparser."""
     n, dev = pos.shape[0], pos.device
-    nc, cap = spec.ncell, spec.capacity
+    nc = spec.ncell
     order, starts = grid["order"], grid["starts"]
-    seg_cnt = grid["counts"].clamp(max=cap)
+    seg_cnt = grid["counts"].clamp(max=spec.capacity)
+    cap = int(seg_cnt.max()) if seg_cnt.numel() else 0
     rng2 = f32(rng * rng)
     karange = torch.arange(cap, device=dev)
     budget = budget_entries if budget_entries > 0 else _CHUNK_BUDGET
@@ -199,3 +221,51 @@ def grid_lp_counts(pos, lp, sender_mask, n_lp: int, area: float, rng: float,
     """Cell-list version of the dense LP histogram (bit-identical)."""
     return grid_lp_counts_from(pos, lp, sender_mask, n_lp, area, rng, spec,
                                build_grid(pos, spec), budget_entries)
+
+
+def cell_block_mean(pos, vec, spec: GridSpec, area: float):
+    """Per-SE mean of positions and of `vec` over the 3x3 cell block:
+    (cdelta, vmean), where cdelta (N, 2) is the displacement from each
+    SE to the centroid of the *other* SEs of its block (zero when alone)
+    and vmean (N, 2) their mean `vec`.
+
+    Each cell's five sums (count, position, vec) add its members in id
+    order from 0, as the reference's CPU scatter-add does; the CSR order
+    of the stable cell sort lists them so (`kernels.cell_sums`, one
+    kernel launch on the card). Cells rolled across the seam shift their
+    position sums by -+area, `fma(count, -+area, sum)` rounded once as
+    XLA fuses it, and the nine rolled grids are added in the 3x3
+    offsets' order."""
+    nc = spec.ncell
+    grid = build_grid(pos, spec)
+    cnt, sx, sy, vx, vy = cell_sums_ops.cell_sums(pos, vec, grid).view(
+        5, nc, nc).unbind(0)
+    acc = None
+    for di, dj in NEIGH_OFFSETS:
+        rc = torch.roll(cnt, (di, dj), (0, 1))
+        rsx = torch.roll(sx, (di, dj), (0, 1))
+        rsy = torch.roll(sy, (di, dj), (0, 1))
+        # unwrap the seam: cells rolled across it hold coordinates
+        # shifted by +-area on the rolled axis
+        if di:
+            row = 0 if di == 1 else -1
+            rsx = rsx.clone()
+            rsx[row, :] = fma32(rc[row, :], -di * area, rsx[row, :])
+        if dj:
+            col = 0 if dj == 1 else -1
+            rsy = rsy.clone()
+            rsy[:, col] = fma32(rc[:, col], -dj * area, rsy[:, col])
+        parts = (rc, rsx, rsy, torch.roll(vx, (di, dj), (0, 1)),
+                 torch.roll(vy, (di, dj), (0, 1)))
+        acc = list(parts) if acc is None else \
+            [a + p for a, p in zip(acc, parts)]
+    cell = grid["cell"].long()
+    flat = [a.reshape(-1)[cell] for a in acc]
+    others = torch.clamp(flat[0] - 1.0, min=1.0)[:, None]
+    alone = ((flat[0] - 1.0) <= 0.0)[:, None]
+    csum = torch.stack([flat[1], flat[2]], dim=1) - pos
+    vsum = torch.stack([flat[3], flat[4]], dim=1) - vec
+    zero = torch.zeros_like(pos)
+    cdelta = torch.where(alone, zero, div32(csum, others) - pos)
+    vmean = torch.where(alone, zero, div32(vsum, others))
+    return cdelta, vmean

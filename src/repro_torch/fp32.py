@@ -53,8 +53,11 @@ def fma32(a, b, c):
 
 def div32(a, b):
     """a / b as a correctly rounded float32 division (integer operands
-    below 2**24 are taken exactly)."""
-    return (a.double() / b.double()).float()
+    below 2**24 are taken exactly). `b` may be a Python float (taken as
+    float32): PyTorch's own division by a scalar multiplies by its
+    reciprocal on CUDA."""
+    b64 = b.double() if isinstance(b, torch.Tensor) else f32(b)
+    return (a.double() / b64).float()
 
 
 def sqrt32(x):

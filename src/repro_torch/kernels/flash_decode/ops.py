@@ -81,9 +81,13 @@ def workspace(device, n_floats: int, n_tickets: int):
 def flash_decode(q, k_cache, v_cache, pos: int):
     """Attention of one query token per sequence to the cached positions
     0..pos. q: (B, Hq, D); caches: (B, S, Hkv, D) with Hkv dividing Hq
-    (query head h reads KV head h // (Hq // Hkv)); pos: a Python int,
-    0 <= pos < S. One dtype, float32 or bfloat16. Returns (B, Hq, D)."""
+    (query head h reads KV head h // (Hq // Hkv)); pos: a Python int
+    >= 0, where pos >= S attends to all S positions, as the reference's
+    mask `kpos > pos` does. One dtype, float32 or bfloat16. Returns
+    (B, Hq, D)."""
     pos = int(pos)
+    if pos < 0:
+        raise ValueError(f"pos={pos} must be >= 0")
     if q.device.type == "cpu":
         return ref.flash_decode_plain(q, k_cache, v_cache, pos)
     on_cuda("flash_decode", q)
@@ -97,8 +101,7 @@ def flash_decode(q, k_cache, v_cache, pos: int):
     if Hkv < 1 or H % Hkv or H // Hkv > MAX_G:
         raise ValueError(f"{H} query heads over {Hkv} KV heads: the group "
                          f"must be whole and at most {MAX_G}")
-    if not 0 <= pos < S:
-        raise ValueError(f"pos={pos} outside the cache's 0..{S - 1}")
+    pos = min(pos, S - 1)  # attending to positions <= S - 1 is all S
     dev = q.device
     check("q", q, DTYPES, (B, H, D), dev)
     check("k_cache", k_cache, (q.dtype,), (B, S, Hkv, D), dev)

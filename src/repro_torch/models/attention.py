@@ -75,13 +75,16 @@ def gqa_decode(p, x, cache, pos, *, cfg):
     """One-token decode. x: (B, 1, d); cache: {"k", "v"} of
     (B, Smax, Hkv, Dh). Writes the new row at `pos` into the cache IN
     PLACE (the reference returns a new cache; the port saves the copy)
-    and returns (y, cache)."""
+    and returns (y, cache). Past the cache's end the row goes to
+    Smax - 1, where the reference's `dynamic_update_slice` clamps it,
+    and the token attends to every cached row."""
     B = x.shape[0]
     pos = pos_scalar(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, x, cfg.rope_theta, positions)
-    cache["k"][:, pos] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, :, 0].to(cache["v"].dtype)
+    row = min(pos, cache["k"].shape[1] - 1)
+    cache["k"][:, row] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, row] = v[:, :, 0].to(cache["v"].dtype)
     out = fd_ops.flash_decode(q[:, :, 0].contiguous(), cache["k"],
                               cache["v"], pos)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(COMPUTE_DT))[:, None]

@@ -163,6 +163,23 @@ def test_flash_decode_plain_equals_pallas(jx, b, h, hkv, s, d, bk, dtype):
         _close(_f32(got), want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_past_the_cache_end_equals_pallas(jx, dtype):
+    """pos >= S: the reference's mask `kpos > pos` keeps all S rows, and
+    so does the wrapper (on the CPU, its plain version)."""
+    jnp = jx["jnp"]
+    B, H, Hkv, S, D = 2, 4, 2, 96, 64
+    q = _rand(40, (B, H, D))
+    kc, vc = _rand(41, (B, S, Hkv, D)), _rand(42, (B, S, Hkv, D))
+    for pos in (S, S + 7):
+        want = jx["fd"](_j(jnp, q, dtype), _j(jnp, kc, dtype),
+                        _j(jnp, vc, dtype), jnp.int32(pos), bk=32,
+                        interpret=True)
+        got = fd_ops.flash_decode(_t(q, dtype), _t(kc, dtype),
+                                  _t(vc, dtype), pos)
+        _close(_f32(got), want, dtype)
+
+
 def test_flash_decode_equals_decode_attend(jx):
     """The jnp twin on the LM path (attention.decode_attend), in
     bfloat16."""
@@ -280,6 +297,21 @@ def test_flash_decode_kernel_equals_plain_on_card(cuda, B, H, Hkv, S, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_past_the_cache_end_on_card(cuda, dtype):
+    """pos = S and S + 7 attend to all S rows, as the plain version."""
+    B, H, Hkv, S, D = 16, 32, 4, 576, 64
+    q = _t(_rand(4, (B, H, D)), dtype).to(cuda)
+    kc = _t(_rand(5, (B, S, Hkv, D)), dtype).to(cuda)
+    vc = _t(_rand(6, (B, S, Hkv, D)), dtype).to(cuda)
+    for pos in (S, S + 7):
+        got = fd_ops.flash_decode(q, kc, vc, pos)
+        want = fd_ref.flash_decode_plain(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        _close(_f32(got.cpu()), _f32(want.cpu()), dtype)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 4, 8, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -298,7 +330,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qd = torch.zeros((1, 4, 64), device=cuda)
     kc = torch.zeros((1, 10, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="pos"):
-        fd_ops.flash_decode(qd, kc, kc, 10)
+        fd_ops.flash_decode(qd, kc, kc, -1)
     with pytest.raises(ValueError, match="group"):
         fd_ops.flash_decode(torch.zeros((1, 18, 64), device=cuda),
                             torch.zeros((1, 10, 1, 64), device=cuda),

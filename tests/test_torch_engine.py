@@ -136,16 +136,15 @@ def test_rejects_what_the_reference_rejects(which, fields):
 
 
 LATER = [
-    lambda: T.ABMConfig(mobility="hotspot"),
-    lambda: T.ABMConfig(mobility="trace", trace_name="t"),
-    lambda: T.ABMConfig(workload="epidemic"),
-    lambda: T.ABMConfig(partitioner="stripe"),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").run(seeds=[0, 1]),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").depart([0]),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").query_neighbors([0]),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").population(),
     lambda: T.EngineConfig(sharding="lp_device"),
-    lambda: T.EngineConfig(repartition_every=5),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").query_region(None),
     lambda: T.EngineConfig(open_world=True),
     lambda: T.EngineConfig(obs=TObs(enabled=True)),
-    lambda: T.EngineConfig(env=T.ExecutionEnvironment(
-        "e", (1.0,) * 4, (("lan",) * 4,) * 4)),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").ledger(),
     lambda: T.Engine(T.EngineConfig(), device="cpu").init(seeds=[0, 1]),
     lambda: T.Engine(T.EngineConfig(), device="cpu").arrive({}),
     lambda: T.Engine(T.EngineConfig(), device="cpu").query_lcr(),
@@ -157,6 +156,39 @@ LATER = [
 def test_later_slices_raise_naming_the_roadmap(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make()
+
+
+PORTED = [
+    ("abm", {"mobility": "hotspot"}), ("abm", {"mobility": "group"}),
+    ("abm", {"mobility": "flock"}),
+    ("abm", {"mobility": "trace", "trace_name": "t"}),
+    ("abm", {"workload": "epidemic"}),
+    ("abm", {"workload": "epidemic", "proximity_backend": "dense"}),
+    ("abm", {"partitioner": "stripe"}), ("abm", {"partitioner": "kmeans"}),
+    ("abm", {"partitioner": "bestresponse"}),
+    ("abm", {"partitioner": "voronoi"}),
+    ("eng", {"repartition_every": 5}),
+    ("eng", {"env": "hetero", "balance": "asymmetric"}),
+    ("eng", {"env": "wan2"}),
+]
+
+
+@pytest.mark.parametrize("which,fields", PORTED,
+                         ids=[f"{w}-{'-'.join(map(str, f.values()))}"
+                              for w, f in PORTED])
+def test_every_scenario_value_is_accepted(which, fields):
+    """Every mobility, workload, partitioner, env and repartition_every
+    the reference accepts, the port accepts (no NotImplementedError)."""
+    if which == "abm":
+        R.ABMConfig(**fields)
+        T.ABMConfig(**fields)
+        return
+    env = fields.get("env")
+    kw = dict(fields, env=R.make_env(env, 4) if env else None)
+    R.EngineConfig(**kw)
+    T.EngineConfig(**dict(fields, env=T.make_env(env, 4) if env else None))
+    assert not hasattr(teng, "LATER") or "scenarios" not in teng.LATER
+    assert not hasattr(tpart, "LATER")
 
 
 # --- heuristics and balance, with the reference's inputs injected --------
@@ -399,6 +431,8 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
         "assert 'repro_torch.kernels.proximity.ops' in sys.modules\n"
+        "assert 'repro_torch.kernels.cell_sums.ops' in sys.modules\n"
+        "assert 'repro_torch.data.pipeline' in sys.modules\n"
         "assert 'repro_torch.launch.serve' in sys.modules\n"
         "print(bad)\n")
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")

@@ -259,6 +259,35 @@ def test_prefill_and_decode_step_equal_reference(smoke):
     assert torch.equal(toks, tsteps.argmax_first(glog2))
 
 
+@pytest.mark.parametrize("pos", [16, 23])
+def test_gqa_decode_past_the_cache_end_equals_reference(smoke, pos):
+    """A decode step at pos >= Smax: the reference clamps the cache row
+    to Smax - 1 (`dynamic_update_slice`) and attends to all Smax rows;
+    the port writes the same row and gives the same output."""
+    from repro.models import attention as rattn
+    from repro_torch.models import attention as tattn
+    rc, tc, rp, tp = smoke
+    r = np.random.default_rng(8)
+    Smax, Hkv, Dh = 16, rc.n_kv_heads, rc.resolved_head_dim
+    ck, cv = (np.asarray(_bf16(r.normal(size=(2, Smax, Hkv, Dh))))
+              for _ in range(2))
+    xd = np.asarray(_bf16(r.normal(size=(2, 1, rc.d_model))))
+    rl = jax.tree.map(lambda a: a[0], rp["layers"])["attn"]
+    want, wc = rattn.gqa_decode(
+        rl, jnp.asarray(xd), {"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
+        jnp.int32(pos), cfg=rc, px=PX, batch_entry=None, seq_entry=None)
+    got, gc = tattn.gqa_decode(
+        tlm.layer(tp["layers"], 0)["attn"], convert.tensor_from_numpy(xd),
+        convert.params_from_numpy({"k": ck, "v": cv}), pos, cfg=tc)
+    _close(got, want, BF16_TOL)
+    for kv in ("k", "v"):
+        _close(gc[kv], wc[kv], BF16_TOL, kv)
+        # every row but the clamped last one is untouched, bit for bit
+        assert np.array_equal(
+            gc[kv][:, :-1].view(torch.int16).numpy().view(np.uint16),
+            np.asarray(wc[kv])[:, :-1].view(np.uint16))
+
+
 def test_argmax_takes_the_first_maximum():
     x = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]],
                      dtype=torch.bfloat16)
