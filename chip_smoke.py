@@ -31,11 +31,25 @@ and prints no result):
               the dense kernel with every SE a sender (`bestresponse`),
               the flock's cell-sum kernel (bit for bit; library
               `index_add_`) and the partitioners' capacity-assign
-              kernel on kmeans' and bestresponse's costs
+              kernel on kmeans' and bestresponse's costs. The batched
+              shapes (replicas stacked on a leading axis, one launch
+              for all): the cell-list kernel at 10 x 10k SEs, the dense
+              kernel at 4 x 2,000 and the cell sums at 4 x 10k flock SEs
   4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
               counts are set to 0 just before and read just after
+  4b. replicas the batched engine, `Engine.run(seeds=...)`: the default
+              config, GAIA on, 1,200 steps, R = 10 seeds 0-9 in one pass
+              (replica 0 bit-equal to phase main's GAIA-on run, replica
+              3 to a solo 300-step run; 1,200 cell-list launches for all
+              ten; s/step, s/step a replica, t_batch / t_single and peak
+              memory); exp6's epidemic and flock and the dense world,
+              R = 4, 100 steps (replica 1 bit-equal to its solo run; two
+              cell-list, one cell-sum and one dense launch a step,
+              whatever R); the batched tuner
+              (`intra_run_tune_batch`, R = 4, window 100, 600 steps),
+              each history the solo tuner's
   5. scenarios exp6's fleet at full width (10k SEs, area 10,000, GAIA
               on): the epidemic for 1,200 steps (two cell-list launches
               a step), hotspot, group, flock and trace replay, and
@@ -48,7 +62,8 @@ and prints no result):
   7. cpu      the port on the card against the port on the CPU, for rwp
               and every scenario at 2,000 SEs: integer series identical,
               positions within one ULP of `area` (kmeans, voronoi and
-              flock: their agreement is printed)
+              flock: their agreement is printed); and batched rwp and
+              hotspot runs (R = 3) held the same way
   8. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
               random weights drawn on the card) serving 16 prompts of
               512 tokens and 64 greedy steps with GAIA expert placement
@@ -70,7 +85,8 @@ excepted); a `seconds` line gives each phase's wall time; the last is
 
 instead builds the kernels and measures 20 steps of the default config
 (with `--scenario epidemic|hotspot|group|flock|trace`, of that exp6
-scenario at full width), after 5 warm-up ones: each phase's elapsed
+scenario at full width; with `--replicas R`, of a batch of R replicas),
+after 5 warm-up ones: each phase's elapsed
 time on the stream (CUDA events), the untraced time per step, and, from
 a `torch.profiler` trace of 20 more, the device's busy time per step
 (the union of its kernels' intervals; its share of the untraced step is
@@ -82,7 +98,8 @@ does the same for the serve phase's model: one traced prefill, then 8
 untraced and 8 traced decode steps.
 
     python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
-        --scale-steps 3 --cpu-steps 20 --epi-steps 50 --scenario-steps 110
+        --scale-steps 3 --cpu-steps 20 --epi-steps 50 \
+        --scenario-steps 110 --replica-scenario-steps 20 --tune-steps 200
 
 is a shake-out run that cuts every phase short (--gen sets the serve
 phase's decode steps).
@@ -303,18 +320,44 @@ def scenario_world(mobility: str, seed: int, dev, **abm):
     return cfg, init_abm(trandom.key(seed), cfg, dev)
 
 
-def check_grid(n, area, rng, seed, dev, layout="engine"):
+def _grid_pairs(pos, snd, spec):
+    """The pair tests a cell-list sweep of one world makes: every sender
+    tests the members of its 9 cells' windows (up to capacity), less
+    itself where it is in one."""
+    from repro_torch.core import neighbors
+    grid = neighbors.build_grid(pos, spec)
+    seg = grid["counts"].clamp(max=spec.capacity)
+    nc = spec.ncell
+    cx, cy = grid["cell"] // nc, grid["cell"] % nc
+    cand = sum(seg[((cx + di) % nc) * nc + (cy + dj) % nc]
+               for di in (-1, 0, 1) for dj in (-1, 0, 1))
+    rank = torch.arange(pos.shape[0], device=pos.device) \
+        - grid["starts"][grid["cell_sorted"]]
+    in_window = torch.empty_like(rank)
+    in_window[grid["order"]] = (rank < spec.capacity).long()
+    return int((cand - in_window)[snd].sum())
+
+
+def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
     """The cell-list kernel against its plain version, exactly, on the
     engine's own world, on three blobs (layout "clustered": the grid
     must overflow and the drop set matters), on an exp6 hotspot world
     (layout "hotspot": crowded cells under the clustered capacity) or
     as the epidemic's exposure sweep (layout "epidemic": n_lp = 2, the
-    infectious senders' 0/1 labels, the susceptible rows)."""
+    infectious senders' 0/1 labels, the susceptible rows). With
+    `replicas` > 1, that many engine worlds (seeds seed, seed + 1, ...)
+    stacked as a batched step gives them: one launch for all."""
     from repro_torch import random as trandom
     from repro_torch.core import neighbors
     from repro_torch.core.abm import epidemic_send_prob
     from repro_torch.kernels.proximity import ops, ref
-    cfg, pos, lp, snd = world(n, area, rng, seed, dev)
+    if replicas > 1:
+        worlds = [world(n, area, rng, seed + r, dev) for r in range(replicas)]
+        cfg = worlds[0][0]
+        pos, lp, snd = (torch.stack([w[i] for w in worlds])
+                        for i in (1, 2, 3))
+    else:
+        cfg, pos, lp, snd = world(n, area, rng, seed, dev)
     n_lp = cfg.n_lp
     if layout == "clustered":
         pos = clustered(n, area, seed, dev)
@@ -337,27 +380,27 @@ def check_grid(n, area, rng, seed, dev, layout="engine"):
     want = ref.grid_lp_counts_plain(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    overflow = bool(grid["overflow"])
+    overflow = bool(grid["overflow"].any())
     if err != 0 or overflow != (layout == "clustered"):
         raise AssertionError(f"grid kernel at n={n}, {layout}: "
                              f"max_abs_err={err}, overflow={overflow}")
-    # work this run's data needs: every sender tests the members of its
-    # 9 cells' windows (up to capacity), less itself where it is in one
-    seg = grid["counts"].clamp(max=spec.capacity)
+    ops.reset_launches()
+    ops.proximity_lp_counts_grid(*args)
+    if ops.grid_kernel.launches != 1:
+        raise AssertionError(f"grid kernel at {replicas} x {n}: "
+                             f"{ops.grid_kernel.launches} launches a call")
+    # work this run's data needs, a world at a time
+    pairs = sum(_grid_pairs(p, s, spec) for p, s in
+                zip(pos.view(-1, n, 2), snd.view(-1, n)))
     nc = spec.ncell
-    cx, cy = grid["cell"] // nc, grid["cell"] % nc
-    cand = sum(seg[((cx + di) % nc) * nc + (cy + dj) % nc]
-               for di in (-1, 0, 1) for dj in (-1, 0, 1))
-    rank = torch.arange(n, device=dev) - grid["starts"][grid["cell_sorted"]]
-    in_window = torch.empty_like(rank)
-    in_window[grid["order"]] = (rank < spec.capacity).long()
-    pairs = int((cand - in_window)[snd].sum())
     # pos, lp, sender flag, order and cell_sorted per row, the CSR
     # offsets, the output
-    nbytes = n * (8 + 4 + 1 + 8 + 4) + nc * nc * 16 + n * n_lp * 4
+    rows = replicas * n
+    nbytes = rows * (8 + 4 + 1 + 8 + 4) + replicas * nc * nc * 16 \
+        + rows * n_lp * 4
     call = lambda: ops.proximity_lp_counts_grid(*args)  # noqa: E731
-    return {"n": n, "area": area, "range": rng, "layout": layout,
-            "n_lp": n_lp, "capacity": spec.capacity,
+    return {"n": n, "replicas": replicas, "area": area, "range": rng,
+            "layout": layout, "n_lp": n_lp, "capacity": spec.capacity,
             "max_cell": int(grid["counts"].max()), "overflow": overflow,
             "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "grid_lp_counts_kernel"),
@@ -368,12 +411,19 @@ def check_grid(n, area, rng, seed, dev, layout="engine"):
             "library_ms": None}
 
 
-def check_dense(n, area, rng, seed, dev, all_senders=False):
+def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1):
     """The dense kernel against its plain version, exactly; with
     `all_senders`, as `bestresponse` calls it (every SE a sender, on
-    the stripe partition's map)."""
+    the stripe partition's map); with `replicas` > 1, that many worlds
+    stacked as a batched step gives them (one launch)."""
     from repro_torch.kernels.proximity import ops, ref
-    cfg, pos, lp, snd = world(n, area, rng, seed, dev)
+    if replicas > 1:
+        worlds = [world(n, area, rng, seed + r, dev) for r in range(replicas)]
+        cfg = worlds[0][0]
+        pos, lp, snd = (torch.stack([w[i] for w in worlds])
+                        for i in (1, 2, 3))
+    else:
+        cfg, pos, lp, snd = world(n, area, rng, seed, dev)
     if all_senders:
         from repro_torch.core import partition as part
         snd = torch.ones_like(snd)
@@ -387,10 +437,16 @@ def check_dense(n, area, rng, seed, dev, all_senders=False):
     err = int((got - want).abs().max())
     if err != 0:
         raise AssertionError(f"dense kernel at n={n}: max_abs_err={err}")
+    ops.reset_launches()
+    ops.proximity_lp_counts(*args)
+    if ops.dense_kernel.launches != 1:
+        raise AssertionError(f"dense kernel at {replicas} x {n}: "
+                             f"{ops.dense_kernel.launches} launches a call")
     pairs = int(snd.sum()) * (n - 1)
-    nbytes = n * (8 + 4 + 1) + n * cfg.n_lp * 4
+    nbytes = replicas * (n * (8 + 4 + 1) + n * cfg.n_lp * 4)
     call = lambda: ops.proximity_lp_counts(*args)  # noqa: E731
-    return {"n": n, "area": area, "range": rng, "all_senders": all_senders,
+    return {"n": n, "replicas": replicas, "area": area, "range": rng,
+            "all_senders": all_senders,
             "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "dense_lp_counts_kernel"),
             **call_profile(call),
@@ -400,17 +456,25 @@ def check_dense(n, area, rng, seed, dev, all_senders=False):
             "library_ms": None}
 
 
-def check_cell_sums(n, area, seed, dev, mobility="flock"):
+def check_cell_sums(n, area, seed, dev, mobility="flock", replicas=1):
     """The flock's cell-sum kernel against its plain version (the
-    in-order CPU sum), bit for bit, on an exp6 flock world; the library
-    call is `index_add_` of the five quantities (atomics, in no fixed
-    order, so not the same bits)."""
+    in-order CPU sum), bit for bit, on an exp6 flock world (with
+    `replicas` > 1, that many stacked as a batched step gives them:
+    R * ncell^2 cells, one launch); the library call is `index_add_` of
+    the five quantities (atomics, in no fixed order, so not the same
+    bits)."""
     from repro_torch.core import neighbors
     from repro_torch.kernels.cell_sums import ops, ref
-    cfg, st = scenario_world(mobility, seed, dev, n_se=n, area=area)
-    pos, vec = st["pos"], st["mob"]
+    sts = [scenario_world(mobility, seed + r, dev, n_se=n, area=area)
+           for r in range(replicas)]
+    cfg = sts[0][0]
+    pos = torch.stack([st["pos"] for _, st in sts]).view(-1, n, 2)
+    vec = torch.stack([st["mob"] for _, st in sts]).view(-1, n, 2)
+    if replicas == 1:
+        pos, vec = pos[0], vec[0]
     grid = neighbors.build_grid(pos, cfg.grid_spec())
     got = ops.cell_sums(pos, vec, grid)
+    pos, vec = pos.reshape(-1, 2), vec.reshape(-1, 2)
     want = ref.cell_sums_plain(pos, vec, grid)
     torch.cuda.synchronize()
     same = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -418,6 +482,12 @@ def check_cell_sums(n, area, seed, dev, mobility="flock"):
     if not same:
         raise AssertionError(f"cell_sums kernel at n={n}: not bit-equal "
                              f"(max_abs_err={err})")
+    ops.reset_launches()
+    ops.cell_sums(pos, vec, grid)
+    if ops.kernel.launches != 1:
+        raise AssertionError(f"cell_sums at {replicas} x {n}: "
+                             f"{ops.kernel.launches} launches a call")
+    n = replicas * n
     ncells = grid["starts"].shape[0]
     vals = torch.stack([torch.ones_like(pos[:, 0]), pos[:, 0], pos[:, 1],
                         vec[:, 0], vec[:, 1]])
@@ -426,7 +496,8 @@ def check_cell_sums(n, area, seed, dev, mobility="flock"):
     # pos, vec and order per SE, the CSR offsets, the five sums
     nbytes = n * (8 + 8 + 8) + ncells * (16 + 20)
     call = lambda: ops.cell_sums(pos, vec, grid)  # noqa: E731
-    return {"n": n, "area": area, "layout": mobility, "cells": ncells,
+    return {"n": n, "replicas": replicas, "area": area, "layout": mobility,
+            "cells": ncells,
             "max_cell": int(grid["counts"].max()), "max_abs_err": err,
             "bit_equal": same, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "cell_sums_kernel"),
@@ -950,11 +1021,13 @@ def main_path(steps: int, dense_steps: int, dev):
     from repro_torch.core import ABMConfig, EngineConfig
     from repro_torch.core.balance import bincount
     from repro_torch.kernels.proximity import ops
-    out = {}
+    out, solo = {}, None
     ops.reset_launches()
     for gaia in (False, True):
         cfg = EngineConfig(gaia_on=gaia, timesteps=steps)
-        st, _, c, sec = run_engine(cfg, dev)
+        st, series, c, sec = run_engine(cfg, dev)
+        if gaia:  # the replicas phase holds its replica 0 to this run
+            solo = (st, series, sec)
         pop = bincount(st["lp"], cfg.abm.n_lp).tolist()
         out[f"gaia_{'on' if gaia else 'off'}"] = {
             "mean_lcr": c["mean_lcr"], "migrations": c["migrations"],
@@ -980,7 +1053,140 @@ def main_path(steps: int, dense_steps: int, dev):
         raise AssertionError(f"main path missed a kernel: {launches}")
     if not out["gaia_on"]["mean_lcr"] > out["gaia_off"]["mean_lcr"]:
         raise AssertionError("LCR with GAIA on is not above GAIA off")
-    return launches
+    return launches, solo
+
+
+def _held_equal(what, batch_state, batch_series, r, state, series,
+                final=True):
+    """Replica r of a batched run against a solo run, bit for bit: every
+    series over the solo run's steps, and (`final`: the runs are as long)
+    the final state and key."""
+    t = next(iter(series.values())).shape[0]
+    bad = [k for k in series
+           if not torch.equal(batch_series[k][:t, r], series[k])]
+    if final:
+        bad += [k for k in state if k != "t" and
+                not torch.equal(batch_state[k][r], state[k])]
+    if bad:
+        raise AssertionError(f"{what}: replica {r} differs from its solo "
+                             f"run in {bad}")
+
+
+def replicas(steps: int, scen_steps: int, tune_steps: int, solo, dev):
+    """The batched engine (`Engine.run(seeds=...)`) on the card:
+
+    - the default EngineConfig() (10k SEs), GAIA on, R = 10 seeds 0-9,
+      `steps` steps in one pass: replica 0 bit-equal to the main phase's
+      solo run of seed 0 (`solo`), replica 3 to a solo run of seed 3
+      over 300 steps; `steps` cell-list launches for all ten; s/step,
+      s/step a replica, t_batch / t_single (exp8's batch_overhead,
+      printed, not gated) and peak memory;
+    - exp6's epidemic and flock and phase main's dense world (area /
+      range < 3), R = 4, `scen_steps` steps: replica 1 bit-equal to its
+      solo run; the epidemic two cell-list launches a step, the flock
+      one cell-sum launch a step, the dense world one dense launch a
+      step, whatever R;
+    - `intra_run_tune_batch` on the default config, R = 4, window 100,
+      `tune_steps` steps: each history the solo tuner's.
+
+    Launch counts are set to 0 just before each batched run and read
+    just after; their sum is returned."""
+    from repro_torch.core import (ABMConfig, Engine, EngineConfig,
+                                  SelfTuneConfig, intra_run_tune,
+                                  intra_run_tune_batch)
+    from repro_torch import random as trandom
+    from repro_torch.kernels import build as kbuild
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg = EngineConfig(timesteps=steps)
+    seeds = list(range(10))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    bst, bser, reps = Engine(cfg, device=dev).run(seeds=seeds)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    got = kbuild.launches()
+    count(got)
+    peak = torch.cuda.max_memory_allocated()
+    st0, ser0, t_single = solo
+    _held_equal("replicas default", bst, bser, 0, st0, ser0)
+    short = dataclasses.replace(cfg, timesteps=min(300, steps))
+    st3, ser3, _ = Engine(short, device=dev).run(seed=3)
+    _held_equal("replicas default", bst, bser, 3, st3, ser3,
+                final=short.timesteps == steps)
+    ovf = [c["grid_overflow"] for c in reps]
+    emit(phase="replicas", run="default", replicas=len(seeds), steps=steps,
+         s_per_step=t_batch / steps,
+         s_per_step_per_replica=t_batch / steps / len(seeds),
+         single_s_per_step=t_single / steps,
+         batch_overhead=t_batch / t_single, peak_memory_bytes=peak,
+         launches=got, mean_lcr=[c["mean_lcr"] for c in reps],
+         migrations=[c["migrations"] for c in reps], grid_overflow=ovf,
+         replica0_equals_main_solo=True, replica3_equals_solo=True,
+         replica3_steps=short.timesteps)
+    if got["proximity_grid"] != steps or any(ovf):
+        raise AssertionError(f"replicas default: {got['proximity_grid']} "
+                             f"cell-list launches (want {steps}), "
+                             f"grid_overflow {ovf}")
+    dense = EngineConfig(abm=ABMConfig(n_se=2000, area=600.0,
+                                       interaction_range=250.0),
+                         timesteps=scen_steps)
+    for scenario in ("epidemic", "flock", "dense_world"):
+        cfg = dense if scenario == "dense_world" else \
+            exp6_cfg(scenario, scen_steps)
+        seeds = [0, 1, 2, 3]
+        kbuild.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst, bser, reps = Engine(cfg, device=dev).run(seeds=seeds)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = kbuild.launches()
+        count(got)
+        st1, ser1, _ = Engine(cfg, device=dev).run(seed=1)
+        _held_equal(f"replicas {scenario}", bst, bser, 1, st1, ser1)
+        want = {"proximity_grid": {"epidemic": 2, "flock": 1}.get(
+                    scenario, 0) * scen_steps,
+                "proximity_dense": scen_steps if scenario == "dense_world"
+                else 0,
+                "cell_sums": scen_steps if scenario == "flock" else 0}
+        emit(phase="replicas", run=scenario, replicas=len(seeds),
+             steps=scen_steps, s_per_step=sec / scen_steps,
+             s_per_step_per_replica=sec / scen_steps / len(seeds),
+             launches=got, mean_lcr=[c["mean_lcr"] for c in reps],
+             grid_overflow=[c["grid_overflow"] for c in reps],
+             replica1_equals_solo=True)
+        if any(got[k] != v for k, v in want.items()) or \
+                any(c["grid_overflow"] for c in reps):
+            raise AssertionError(f"replicas {scenario}: launches {got}, "
+                                 f"want {want}")
+    cfg = EngineConfig(timesteps=tune_steps)
+    tc = SelfTuneConfig(window=100)
+    seeds = [0, 1, 2, 3]
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hists = intra_run_tune_batch(cfg, tc, seeds, device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    count(kbuild.launches())
+    for seed, hist in zip(seeds, hists):
+        _, solo_hist = intra_run_tune(trandom.key(seed), cfg, tc, device=dev)
+        if hist != solo_hist:
+            raise AssertionError(f"batched tuner, seed {seed}: {hist} != "
+                                 f"{solo_hist}")
+    emit(phase="replicas", run="intra_run_tune_batch", replicas=len(seeds),
+         steps=tune_steps, window=tc.window, s=sec,
+         mf=[[h[1] for h in hist] for hist in hists],
+         window_lcr=[[h[2] for h in hist] for hist in hists],
+         histories_equal_solo=True)
+    return total
 
 
 def scale(steps: int, dev):
@@ -1046,6 +1252,21 @@ def card_vs_cpu(steps: int, dev):
                  state_equal=same)
             if exact and (bad or ulps > 1.0 or not all(same.values())):
                 bad_runs.append(name)
+    for scenario in ("rwp", "hotspot"):  # batched: R = 3 in one pass
+        cfg = exp6_cfg(scenario, steps, n=2000, area=area)
+        seeds = [0, 1, 2]
+        gst, gser, _ = Engine(cfg, device=dev).run(seeds=seeds)
+        cst, cser, _ = Engine(cfg, device="cpu").run(seeds=seeds)
+        bad = [k for k in cser if not torch.equal(gser[k].cpu(), cser[k])]
+        ulps = float((gst["pos"].cpu() - cst["pos"]).abs().max()) \
+            / (area * ULP)
+        name = f"{scenario} x{len(seeds)} batched"
+        emit(phase="cpu", run=name, held="bitwise", n_se=2000, steps=steps,
+             replicas=len(seeds), series_mismatch=bad,
+             max_pos_gap_area_ulps=ulps,
+             lp_equal=torch.equal(gst["lp"].cpu(), cst["lp"]))
+        if bad or ulps > 1.0 or not torch.equal(gst["lp"].cpu(), cst["lp"]):
+            bad_runs.append(name)
     if bad_runs:
         raise AssertionError(f"the card's run differs from the CPU's: "
                              f"{bad_runs}")
@@ -1174,16 +1395,18 @@ def scenarios(epi_steps: int, steps: int, dev):
     return launches
 
 
-def profile(steps: int, dev, scenario: str = ""):
+def profile(steps: int, dev, scenario: str = "", n_rep: int = 1):
     """Where a step of the default config (or of an exp6 scenario at
-    full width) spends its time."""
+    full width) spends its time; with `n_rep` > 1, a step of a batch of
+    that many replicas (seeds 0, 1, ...)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     from repro_torch.core import Engine, EngineConfig
     from repro_torch.core import engine as teng
     cfg = exp6_cfg(scenario, 2 * steps + 5) if scenario else EngineConfig()
-    eng = Engine(cfg, device=dev).init(seed=0)
+    eng = Engine(cfg, device=dev).init(
+        seeds=list(range(n_rep)) if n_rep > 1 else None)
     eng.step(5)
     state, phases = eng.state, teng.step_phases(cfg)
     per_phase = {name: [] for name, _ in phases}
@@ -1225,7 +1448,7 @@ def profile(steps: int, dev, scenario: str = ""):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     busy_ms = busy / steps / 1e3
     emit(phase="profile", config=f"exp6 {scenario}" if scenario
-         else "EngineConfig()", steps=steps,
+         else "EngineConfig()", replicas=n_rep, steps=steps,
          phase_ms_median={k: statistics.median(v)
                           for k, v in per_phase.items()},
          untraced_ms_per_step=step_ms,
@@ -1247,6 +1470,10 @@ def main():
                    help="steps of the scenarios phase's epidemic run")
     p.add_argument("--scenario-steps", type=int, default=300,
                    help="steps of the scenarios phase's other runs")
+    p.add_argument("--replica-scenario-steps", type=int, default=100,
+                   help="steps of the replicas phase's epidemic and flock")
+    p.add_argument("--tune-steps", type=int, default=600,
+                   help="steps of the replicas phase's batched tuner")
     p.add_argument("--gen", type=int, default=64,
                    help="decode steps of the serve phase")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -1254,6 +1481,8 @@ def main():
     p.add_argument("--scenario", default="", choices=(
         "", "epidemic", "hotspot", "group", "flock", "trace"),
         help="with --profile: an exp6 scenario at full width instead")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="with --profile: a batch of this many replicas")
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
@@ -1264,7 +1493,7 @@ def main():
     smi = card()
     build()
     if a.profile:
-        profile(a.profile, dev, a.scenario)
+        profile(a.profile, dev, a.scenario, a.replicas)
         return
     if a.profile_serve:
         profile_serve(a.profile_serve, dev)
@@ -1286,14 +1515,20 @@ def main():
                        check_grid(10_000, 10_000.0, 250.0, 6, dev,
                                   layout="epidemic"),
                        check_grid(10_000, 10_000.0, 250.0, 7, dev,
-                                  layout="hotspot")],
+                                  layout="hotspot"),
+                       check_grid(10_000, 10_000.0, 250.0, 20, dev,
+                                  replicas=10)],
               "dense": [check_dense(2_000, 600.0, 250.0, 3, dev),
                         check_dense(10_000, 10_000.0, 250.0, 4, dev),
                         check_dense(10_000, 10_000.0, 250.0, 8, dev,
-                                    all_senders=True)],
+                                    all_senders=True),
+                        check_dense(2_000, 600.0, 250.0, 30, dev,
+                                    replicas=4)],
               "cell_sums": [check_cell_sums(10_000, 10_000.0, 9, dev),
                             check_cell_sums(10_000, 10_000.0, 10, dev,
-                                            mobility="hotspot")],
+                                            mobility="hotspot"),
+                            check_cell_sums(10_000, 10_000.0, 40, dev,
+                                            replicas=4)],
               "capacity_assign": [check_capacity_assign("kmeans", 11, dev),
                                   check_capacity_assign("bestresponse", 12,
                                                         dev)],
@@ -1301,7 +1536,11 @@ def main():
     emit(phase="kernels_checked", shapes=shapes)
     seconds["kernels"] = time.perf_counter() - t_kernels
     served = timed("serve", serve_phase, a.gen, dev)
-    launches = timed("main", main_path, a.steps, a.dense_steps, dev)
+    launches, solo = timed("main", main_path, a.steps, a.dense_steps, dev)
+    replica_launches = timed("replicas", replicas, a.steps,
+                             a.replica_scenario_steps, a.tune_steps, solo,
+                             dev)
+    del solo
     scenario_launches = timed("scenarios", scenarios, a.epi_steps,
                               a.scenario_steps, dev)
     for stem in ("cell_sums", "capacity_assign"):
@@ -1346,6 +1585,7 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[stem],
             "scenario_launches": scenario_launches.get(stem, 0),
+            "replicas_launches": replica_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -1,5 +1,6 @@
-"""GAIA self-clustering core, ported to PyTorch: one closed-world
-replica of the evaluation model, every mobility model and workload.
+"""GAIA self-clustering core, ported to PyTorch: closed-world replicas
+(one, or a batch of R) of the evaluation model, every mobility model
+and workload.
 
 - abm: the evaluation model, §5.1 (mobility models, the epidemic
   workload, proximity counts)
@@ -8,7 +9,9 @@ replica of the evaluation model, every mobility model and workload.
 - balance: symmetric/asymmetric load balancing, §4.4
 - partition: the SE -> LP partitioners (initial and periodic)
 - engine: the timestepped adaptive-partitioning engine, §4
-- service: the `Engine` facade (init / step / run / metrics)
+- service: the `Engine` facade (init / step / run / metrics), one
+  replica or a batch
+- selftune: the §5.5 MF tuners (intra-run, batched, inter-run)
 - costmodel, stats: host-only copies of the reference's modules
 """
 from repro_torch.core.abm import (ABMConfig, MOBILITY_MODELS,  # noqa: F401
@@ -24,9 +27,12 @@ from repro_torch.core.neighbors import (GridSpec, build_grid,  # noqa: F401
                                         grid_lp_counts, make_grid_spec)
 from repro_torch.core.partition import (PARTITION_BACKENDS,  # noqa: F401
                                         PartitionConfig)
+from repro_torch.core.selftune import (SelfTuneConfig,  # noqa: F401
+                                       inter_run_tune, intra_run_tune,
+                                       intra_run_tune_batch)
 from repro_torch.core.service import Engine, ReplicaService  # noqa: F401
-from repro_torch.core.stats import (merge_counters,  # noqa: F401
-                                    replica_stats, summarize)
+from repro_torch.core.stats import (is_stats, merge_counters,  # noqa: F401
+                                    percentile, replica_stats, summarize)
 
 __all__ = [
     "ABMConfig", "EngineConfig", "HeuristicConfig", "PartitionConfig",
@@ -36,5 +42,7 @@ __all__ = [
     "ExecutionEnvironment", "make_env", "wct", "wct_env",
     "GridSpec", "build_grid", "grid_lp_counts", "make_grid_spec",
     "state_from_numpy", "state_to_numpy",
-    "merge_counters", "replica_stats", "summarize",
+    "merge_counters", "replica_stats", "summarize", "is_stats",
+    "percentile", "SelfTuneConfig", "intra_run_tune",
+    "intra_run_tune_batch", "inter_run_tune",
 ]

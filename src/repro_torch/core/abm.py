@@ -25,6 +25,14 @@ where a fused or correctly rounded float32 result is needed:
 The reference runs its init eagerly, op by op, so nothing there is
 fused: the init's arithmetic is plain float32, one rounding an op.
 
+Replicas. Every function of the step takes positions and per-SE state
+with a leading replica axis, (R, N, ...), as well as without one, and
+keys as an (R, 2) batch or one key (`repro_torch.random`): the per-row
+arithmetic is elementwise, the draws come in (R, N, ...) from R keys,
+the global rows `mob_g` are (R, G, 4), and the grid covers R worlds
+(`neighbors.build_grid`). Replica r computes what a solo call on its
+slice computes, bit for bit. The init stays per replica.
+
 The proximity hot spot dispatches over the four backend names. On a
 CUDA tensor "grid" and "pallas_grid" launch the cell-list kernel and
 "dense" and "pallas" the dense kernel (`repro_torch.kernels.proximity`);
@@ -307,8 +315,9 @@ def toroidal_signed_delta(frm, to, area: float):
 
 
 def _norm(v):
-    """(N, 1) row norms: sqrt(fma(y, y, x*x)), as XLA fuses them."""
-    return sqrt32(fma32(v[:, 1], v[:, 1], v[:, 0] * v[:, 0]))[:, None]
+    """(..., N, 1) row norms: sqrt(fma(y, y, x*x)), as XLA fuses them."""
+    return sqrt32(fma32(v[..., 1], v[..., 1], v[..., 0] * v[..., 0]))[
+        ..., None]
 
 
 def _unit(v, norm=None):
@@ -318,7 +327,8 @@ def _unit(v, norm=None):
 
 
 def rwp_draws(key, n: int, cfg: ABMConfig, device):
-    """The fresh-waypoint draw for all n SEs, indexed by SE id."""
+    """The fresh-waypoint draw for all n SEs, indexed by SE id ((R, n,
+    2) from a key batch)."""
     return trandom.uniform(key, (n, 2), maxval=cfg.area, device=device)
 
 
@@ -332,23 +342,23 @@ def rwp_apply(pos, waypoint, new_wp, cfg: ABMConfig, speed=None):
     delta = torch.where(delta > half, delta - area, delta)
     delta = torch.where(delta < -half, delta + area, delta)
     dist = _norm(delta)
-    arrived = dist[:, 0] <= speed
+    arrived = dist <= speed
     step = div32(delta, dist.clamp(min=f32(1e-9)))
     step = torch.where(dist > 0, step, torch.zeros_like(step))
     moved = remainder(fma32(step, speed, pos), cfg.area)
-    new_pos = torch.where(arrived[:, None], waypoint, moved)
-    next_wp = torch.where(arrived[:, None], new_wp, waypoint)
+    new_pos = torch.where(arrived, waypoint, moved)
+    next_wp = torch.where(arrived, new_wp, waypoint)
     return remainder(new_pos, cfg.area), next_wp
 
 
 def _globals_step(key, mob_g, cfg: ABMConfig):
-    """Advance the attractor / leader rows by RWP at a fraction of the
-    SEs' speed."""
-    draw = trandom.uniform(key, (mob_g.shape[0], 2), maxval=cfg.area,
+    """Advance the attractor / leader rows ((..., G, 4)) by RWP at a
+    fraction of the SEs' speed."""
+    draw = trandom.uniform(key, (mob_g.shape[-2], 2), maxval=cfg.area,
                            device=mob_g.device)
-    gpos, gwp = rwp_apply(mob_g[:, :2], mob_g[:, 2:], draw, cfg,
+    gpos, gwp = rwp_apply(mob_g[..., :2], mob_g[..., 2:], draw, cfg,
                           speed=cfg.speed * _GLOBAL_SPEED_FACTOR)
-    return torch.cat([gpos, gwp], dim=1)
+    return torch.cat([gpos, gwp], dim=-1)
 
 
 def _noise_scale(cfg: ABMConfig) -> float:
@@ -391,19 +401,22 @@ def mobility_row_draws(key, n: int, mob_g, cfg: ABMConfig, device):
     advanced global rows: {"wp"} for rwp; {"anchor", "noise"} for
     hotspot/group (the SE's attractor / leader position and the
     unscaled noise u - 0.5); {"tp"} for trace (the next frame, indexed
-    on the device by the counter in mob_g[0, 0])."""
+    on the device by the counter in mob_g[..., 0, 0]; the frames are
+    one tensor every replica reads)."""
     if cfg.mobility == "rwp":
         return {"wp": rwp_draws(key, n, cfg, device)}, mob_g
     if cfg.mobility == "trace":
         frames = trace_frames_on(cfg, device)
         T = frames.shape[0]
-        nxt = mob_g[0, :1].to(torch.int64) + 1
+        nxt = mob_g[..., 0, 0].to(torch.int64) + 1
         idx = nxt % T if cfg.trace_policy == "loop" else nxt.clamp(max=T - 1)
         mob_g = mob_g.clone()
-        mob_g[0, 0] += 1.0
-        return {"tp": frames.index_select(0, idx)[0]}, mob_g
+        mob_g[..., 0, 0] += 1.0
+        tp = frames.index_select(0, idx.reshape(-1))
+        return {"tp": tp.view(idx.shape + frames.shape[1:])}, mob_g
     mob_g = _globals_step(trandom.fold_in(key, 1), mob_g, cfg)
-    anchor = mob_g[torch.arange(n, device=device) % mob_g.shape[0], :2]
+    anchor = mob_g[..., torch.arange(n, device=device) % mob_g.shape[-2],
+                   :2]
     noise = trandom.uniform(trandom.fold_in(key, 2), (n, 2),
                             device=device) - 0.5
     return {"anchor": anchor, "noise": noise}, mob_g
@@ -431,14 +444,14 @@ def _flock_step(k_noise, pos, mob, cfg: ABMConfig):
     0.8, mob))) with the noise's 2 * 0.4 folded into 0.8. Degenerate
     worlds (no grid) flock against the global mean, whose float32 sums
     add in another order than XLA's reduction."""
-    n = pos.shape[0]
+    n = pos.shape[-2]
     spec = cfg.grid_spec()
     if spec is not None:
         cdelta, hmean = neighbors.cell_block_mean(pos, mob, spec, cfg.area)
     else:  # un-tessellatable world: one global "cell" (non-toroidal mean)
         inv = f32(1.0 / f32(max(n - 1, 1)))
-        cdelta = (pos.sum(0) - pos) * inv - pos
-        hmean = (mob.sum(0) - mob) * inv
+        cdelta = (_world_sum(pos) - pos) * inv - pos
+        hmean = (_world_sum(mob) - mob) * inv
     cnorm = _norm(cdelta)
     reach = torch.clamp(cnorm * f32(1.0 / f32(cfg.interaction_range)),
                         max=1.0)
@@ -452,11 +465,19 @@ def _flock_step(k_noise, pos, mob, cfg: ABMConfig):
     return remainder(fma32(heading, f32(cfg.speed), pos), cfg.area), heading
 
 
+def _world_sum(x):
+    """(..., 1, 2) sums of each world's (N, 2) rows, a world at a time:
+    a replica's float32 sum adds in the order of a solo call's."""
+    if x.dim() == 2:
+        return x.sum(0)
+    return torch.stack([w.sum(0) for w in x])[:, None, :]
+
+
 def mobility_step(key, pos, waypoint, mob, mob_g, cfg: ABMConfig):
     """One mobility timestep for all N SEs, in global-SE-id order.
     Returns (pos, waypoint, mob, mob_g)."""
     if row_local_mobility(cfg):
-        draws, mob_g = mobility_row_draws(key, pos.shape[0], mob_g, cfg,
+        draws, mob_g = mobility_row_draws(key, pos.shape[-2], mob_g, cfg,
                                           pos.device)
         pos, waypoint = mobility_row_apply(pos, waypoint, mob, draws, cfg)
         return pos, waypoint, mob, mob_g
@@ -492,7 +513,8 @@ def interaction_counts_overflow(pos, lp, sender_mask, cfg: ABMConfig,
         return counts, grid["overflow"]
     counts = prox.proximity_lp_counts(pos, lp, sender_mask, cfg.n_lp,
                                       cfg.area, cfg.interaction_range)
-    return counts, torch.zeros((), dtype=torch.bool, device=pos.device)
+    return counts, torch.zeros(pos.shape[:-2], dtype=torch.bool,
+                               device=pos.device)
 
 
 # ---------------------------------------------------------------------------
@@ -579,8 +601,8 @@ def epidemic_exposure_overflow(pos, labels, query_mask, cfg: ABMConfig,
         counts = prox.proximity_lp_counts_grid(
             pos, labels, query_mask, 2, cfg.area, cfg.interaction_range,
             spec, grid, neighbors.chunk_entries(cfg.mem_budget_mb))
-        return counts[:, 1], grid["overflow"]
+        return counts[..., 1], grid["overflow"]
     counts = prox.proximity_lp_counts(pos, labels, query_mask, 2, cfg.area,
                                       cfg.interaction_range)
-    return counts[:, 1], torch.zeros((), dtype=torch.bool,
-                                     device=pos.device)
+    return counts[..., 1], torch.zeros(pos.shape[:-2], dtype=torch.bool,
+                                       device=pos.device)

@@ -1,5 +1,5 @@
 """The GAIA adaptive-partitioning engine (paper §4), the port of
-`repro.core.engine` for one closed-world replica.
+`repro.core.engine` for closed-world replicas, one or a batch.
 
 One step = one simulation timestep, cut into the reference's phases:
 
@@ -20,8 +20,20 @@ metrics are stacked once per window. The PRNG key and the step counter
 live on the host (a CPU key tensor, a Python int), so key splitting
 never waits for the card.
 
-`state_from_numpy` / `state_to_numpy` carry an engine state between the
-reference and the port (the key as its two uint32 words).
+Replica batching (the reference's `jax.vmap` over seeds). A batch of R
+replicas is the solo state with a leading replica axis on every leaf
+(the key an (R, 2) tensor; `t` one lockstep Python int), and one step
+function serves both: every phase reads its shapes from the state, so
+a solo step is the same code on leaves without that axis. Replica r of
+a batch is bit for bit the solo run of its seed; each step makes the
+same kernel launches for R replicas as for one (one cell-list launch
+for all R worlds). The init runs per replica, eagerly, and stacks, as
+the reference does on purpose; the repartition phase calls the
+partitioner once per replica. MF may be an (R,) vector.
+
+`state_from_numpy` / `state_to_numpy` carry an engine state, solo or
+batched, between the reference and the port (the key as its uint32
+words).
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.core import balance as bal
 from repro_torch.core import heuristics as heu
+from repro_torch.core import neighbors
 from repro_torch.core import partition as part
 from repro_torch.core.abm import (ABMConfig, check_trace_horizon,
                                   epidemic_draws,
@@ -55,8 +68,6 @@ REPART_SALT = 0x7a47
 
 #: the ROADMAP.md items that bring what the port does not run yet
 LATER = {
-    "replicas": "ROADMAP.md queue 1, item 7 (replica batching and "
-                "self-tuning)",
     "service": "ROADMAP.md queue 1, item 8 (core/service.py)",
     "obs": "ROADMAP.md queue 1, item 9 (obs/)",
     "sharding": "ROADMAP.md queue 1, item 10 (parallel/lp_shard.py)",
@@ -163,11 +174,28 @@ def _init_engine(key, cfg: EngineConfig, device):
     return st
 
 
+def _replica_index(like):
+    """The replica index as indices of a (..., L, L) matrix: () for a
+    solo row tensor, an (R, 1) column of 0..R-1 for a batch."""
+    if like.dim() == 1:
+        return ()
+    return (torch.arange(like.shape[0], device=like.device)[:, None],)
+
+
+def _pair_add(mat, src, dst, mask):
+    """mat[..., src, dst] += mask, per replica (int32 adds, exact)."""
+    return mat.index_put(
+        _replica_index(src) + (src.long(), dst.long()),
+        mask.to(torch.int32), accumulate=True)
+
+
 def step_phases(cfg: EngineConfig):
     """Ordered (name, fn) phase decomposition of one timestep, with the
     reference's names, cut points and metric keys. Each phase maps the
     phase context dict `px` (state under "st", plus the intermediates
-    earlier phases added) to a new one."""
+    earlier phases added) to a new one. Per-SE values are (N, ...) for
+    one replica and (R, N, ...) for a batch, per-replica values () and
+    (R,)."""
     n, L = cfg.abm.n_se, cfg.abm.n_lp
 
     def i32(x, like):
@@ -217,19 +245,26 @@ def step_phases(cfg: EngineConfig):
         draws = epidemic_draws(px["k_move"], n, cfg.abm, pos.device)
         epi = epidemic_row_update(epi, exposure, draws, cfg.abm,
                                   infection_table(cfg.abm, pos.device))
-        return dict(px, epi=epi, infected=(epi > 0).sum(dtype=torch.int32),
+        return dict(px, epi=epi,
+                    infected=(epi > 0).sum(-1, dtype=torch.int32),
                     grid_ovf=px["grid_ovf"] | ovf)
 
     def ph_account(px):
         # the per-pair flow matrix (src LP -> dst LP) is the single
         # source of truth; the scalar LCR terms are its trace and total
         lp, counts = px["lp"], px["counts"]
-        flows = torch.zeros((L, L), dtype=torch.int32, device=lp.device)
-        flows.index_add_(0, lp.long(), counts)
-        local = flows.diagonal().sum(dtype=torch.int32)
-        total = flows.sum(dtype=torch.int32)
+        lead = lp.shape[:-1]
+        flows = torch.zeros(lead + (L, L), dtype=torch.int32,
+                            device=lp.device)
+        rows = lp.long()
+        if lead:  # replica r's rows of the (R * L, L) flat flows
+            rows = rows + neighbors.replica_offsets(lead[0], L, lp.device)
+        flows.view(-1, L).index_add_(0, rows.reshape(-1),
+                                     counts.reshape(-1, L))
+        local = flows.diagonal(dim1=-2, dim2=-1).sum(-1, dtype=torch.int32)
+        total = flows.sum((-2, -1), dtype=torch.int32)
         st = px["st"]
-        zero = torch.zeros((), dtype=torch.int32, device=lp.device)
+        zero = torch.zeros(lead, dtype=torch.int32, device=lp.device)
         return dict(px, flows=flows, local=local, total=total,
                     remote=total - local,
                     hstate={k: st[k] for k in ("ring", "ptr", "since_eval",
@@ -247,15 +282,21 @@ def step_phases(cfg: EngineConfig):
         lp, pos = px["lp"], px["pos"]
         pending_dst = px["pending_dst"]
         pcfg = part.from_engine(cfg)
-        new_lp = part.partition(
-            trandom.fold_in(px["k_move"], REPART_SALT), pos,
-            torch.ones((n,), dtype=torch.float32, device=pos.device), pcfg,
-            prev=lp if part.uses_prev(pcfg) else None, compiled=True)
+        keys = trandom.fold_in(px["k_move"], REPART_SALT)
+        ones = torch.ones((n,), dtype=torch.float32, device=pos.device)
+
+        def repartition(key, pos, lp):
+            return part.partition(key, pos, ones, pcfg,
+                                  prev=lp if part.uses_prev(pcfg) else None,
+                                  compiled=True)
+        if lp.dim() == 1:
+            new_lp = repartition(keys, pos, lp)
+        else:  # the solo partitioner, a replica at a time
+            new_lp = torch.stack([repartition(*a)
+                                  for a in zip(keys, pos, lp)])
         move = (new_lp != lp) & (pending_dst < 0)
-        reparts = move.sum(dtype=torch.int32)
-        mig_flows = px["mig_flows"].index_put(
-            (lp.long(), new_lp.long()), move.to(torch.int32),
-            accumulate=True)
+        reparts = move.sum(-1, dtype=torch.int32)
+        mig_flows = _pair_add(px["mig_flows"], lp, new_lp, move)
         return dict(px, pending_dst=torch.where(move, new_lp, pending_dst),
                     pending_eta=torch.where(
                         move, i32(t + cfg.migration_delay, lp),
@@ -284,16 +325,14 @@ def step_phases(cfg: EngineConfig):
         admit = bal.select_migrations(cand, lp, dest, alpha, grants, L)
         hstate = dict(hstate, last_mig=torch.where(
             admit, i32(t, lp), hstate["last_mig"]))
-        mig_flows = px["mig_flows"].index_put(
-            (lp.long(), dest.long()), admit.to(torch.int32),
-            accumulate=True)
+        mig_flows = _pair_add(px["mig_flows"], lp, dest, admit)
         return dict(px,
                     pending_dst=torch.where(admit, dest, pending_dst),
                     pending_eta=torch.where(
                         admit, i32(t + cfg.migration_delay, lp),
                         pending_eta),
                     hstate=hstate, n_evals=n_evals,
-                    migs=px["migs"] + admit.sum(dtype=torch.int32),
+                    migs=px["migs"] + admit.sum(-1, dtype=torch.int32),
                     mig_flows=mig_flows)
 
     def ph_finalize(px):
@@ -332,8 +371,9 @@ def step_phases(cfg: EngineConfig):
 
 
 def step(state, cfg: EngineConfig, mf=None):
-    """One timestep. Returns (state, per-step metrics); `mf` overrides
-    cfg.heuristic.mf."""
+    """One timestep of one replica or a batch. Returns (state, per-step
+    metrics); `mf` overrides cfg.heuristic.mf (a batch: an (R,) float32
+    tensor on the state's device, or one value for all)."""
     px = {"st": state, "mf": mf}
     for _, fn in step_phases(cfg):
         px = fn(px)
@@ -360,10 +400,12 @@ def series_counters(series) -> dict:
 
 def _run_steps(state, cfg: EngineConfig, n_steps: int, mf=None):
     """Advance n_steps; returns (state, series) with the per-step
-    metrics stacked on the device."""
+    metrics stacked on the device ((T, ...), or (T, R, ...) for a
+    batch)."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
-    mf = cfg.heuristic.mf if mf is None else float(mf)
+    if not isinstance(mf, torch.Tensor):
+        mf = cfg.heuristic.mf if mf is None else float(mf)
     per_step = []
     for _ in range(n_steps):
         state, m = step(state, cfg, mf=mf)
@@ -399,28 +441,125 @@ def _run(key, cfg: EngineConfig, device):
 
 def state_from_numpy(arrays, device):
     """The port's engine state from the reference's, given as a dict of
-    numpy arrays: the key as its two uint32 words (`jax.random.key_data`),
-    the step counter `t` as a scalar, every other array as it is."""
+    numpy arrays: the key as its uint32 words (`jax.random.key_data`:
+    (2,), or (R, 2) for a batch), the step counter `t` as a scalar (a
+    batch's (R,) counters must agree), every other array as it is."""
     st = {}
     for k, v in arrays.items():
         if k == "key":
             st[k] = trandom.wrap_key_data(np.asarray(v))
         elif k == "t":
-            st[k] = int(v)
+            ts = np.unique(np.asarray(v))
+            if ts.size != 1:
+                raise ValueError(f"replicas at different steps {ts}: a "
+                                 "batch steps in lockstep")
+            st[k] = int(ts[0])
         else:
             st[k] = torch.from_numpy(np.array(v)).to(device)
     return st
 
 
 def state_to_numpy(state) -> dict:
-    """Inverse of `state_from_numpy`: numpy arrays, the key as two
-    uint32 words and `t` as an int32 scalar."""
+    """Inverse of `state_from_numpy`: numpy arrays, the key as uint32
+    words and `t` as an int32 scalar ((R,) for a batch, as the
+    reference's stacked state holds it)."""
     out = {}
+    batch = state["key"].dim() == 2
     for k, v in state.items():
         if k == "key":
             out[k] = v.numpy().astype(np.uint32)
         elif k == "t":
-            out[k] = np.int32(v)
+            out[k] = np.full((state["key"].shape[0],), v, np.int32) \
+                if batch else np.int32(v)
         else:
             out[k] = v.cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# batched multi-replica execution (the reference's vmap over seeds)
+# ---------------------------------------------------------------------------
+
+
+def replica_keys(seeds):
+    """Seeds -> the (R, 2) key batch: row r is `random.key(seeds[r])`,
+    so replica r reproduces a solo run of seeds[r] bit for bit."""
+    return trandom.keys(seeds)
+
+
+def stack_states(states):
+    """Stack per-replica states along a new leading replica axis (keys
+    included); `t` stays one int, which every replica must share."""
+    ts = {s["t"] for s in states}
+    if len(ts) != 1:
+        raise ValueError(f"replicas at different steps {sorted(ts)}")
+    return {k: ts.pop() if k == "t" else
+            torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def _init_batch(cfg: EngineConfig, seeds, device):
+    """Stacked engine state for R replicas: each replica's init runs
+    through the solo, eager init, then the states stack (as the
+    reference does, so the batch's init is each seed's own)."""
+    if len(seeds) < 1:
+        raise ValueError("a replica batch needs at least one seed")
+    return stack_states([_init_engine(k, cfg, device)
+                         for k in replica_keys(seeds)])
+
+
+def _mf_vector(cfg: EngineConfig, mf, n_rep: int, device):
+    """Per-replica Migration Factors: None or a scalar is one value for
+    every replica (a Python float, as a solo run takes it); a vector of
+    R values becomes an (R,) float32 tensor on `device`, copied once a
+    window from a pinned buffer without blocking the host."""
+    if mf is None or np.ndim(mf) == 0:
+        return cfg.heuristic.mf if mf is None else float(mf)
+    if isinstance(mf, torch.Tensor):
+        mf = mf.detach().cpu().numpy()
+    v = np.asarray(mf, np.float32).reshape(-1)
+    if v.shape != (n_rep,):
+        raise ValueError(f"mf holds {v.size} values for {n_rep} replicas")
+    t = torch.from_numpy(v.copy())
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def replica_series(series, r: int):
+    """Replica r of a batched (T, R, ...) series: the (T, ...) series a
+    solo run would have produced (contiguous, so its float32 sums add in
+    the solo order)."""
+    return {k: v[:, r].contiguous() for k, v in series.items()}
+
+
+def _batch_counters(series, n_rep: int):
+    """One counters dict per replica, from one copy of the series off
+    the device."""
+    host = {k: v.cpu() for k, v in series.items()}
+    return [series_counters(replica_series(host, r)) for r in range(n_rep)]
+
+
+def _run_window_batch(states, cfg: EngineConfig, n_steps: int, mf=None):
+    """Advance R stacked replica states by n_steps; `mf` a scalar (all
+    replicas) or an (R,) vector. Returns (states, [counters per
+    replica])."""
+    check_trace_horizon(cfg.abm, states["t"], n_steps)
+    n_rep = states["key"].shape[0]
+    states, series = _run_steps(
+        states, cfg, n_steps,
+        mf=_mf_vector(cfg, mf, n_rep, states["lp"].device))
+    return states, _batch_counters(series, n_rep)
+
+
+def _run_batch(cfg: EngineConfig, seeds, device):
+    """Run R independent replicas, one per seed, in one batched pass.
+    Returns (states, series, reps): the stacked final states, the (T, R,
+    ...) series on the device, and one counters dict per replica (the
+    solo run's schema, `migration_ratio` included)."""
+    check_trace_horizon(cfg.abm, 0, cfg.timesteps)
+    states = _init_batch(cfg, list(seeds), device)
+    states, series = _run_steps(states, cfg, cfg.timesteps)
+    reps = _batch_counters(series, len(seeds))
+    for c in reps:
+        c["migration_ratio"] = _migration_ratio(c, cfg)
+    return states, series, reps

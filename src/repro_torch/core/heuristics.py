@@ -11,7 +11,9 @@ passed since its last migration. They differ in the window:
   #3 = #2, but evaluated only after zeta interactions since last eval
 
 Pure functions: the window ring is updated out of place, as in the
-reference.
+reference. Each takes a leading replica axis too: the ring (R, w, N, L)
+and per-SE inputs (R, N, ...), with a per-replica MF; replica r gets
+what a solo call on its slice gets.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import neighbors
 from repro_torch.fp32 import div32, f32
 
 
@@ -60,13 +63,20 @@ def update_window(cfg: HeuristicConfig, state, counts, sender_mask, t: int):
     zero = torch.zeros_like(counts)
     if cfg.kind == 1:
         # timestep window: every SE's slot advances each step
-        ring[t % cfg.kappa] = torch.where(sender_mask[:, None], counts, zero)
+        ring[..., t % cfg.kappa, :, :] = torch.where(sender_mask[..., None],
+                                                     counts, zero)
         return dict(state, ring=ring)
-    # event window: only senders advance their own pointer
-    idx = torch.arange(counts.shape[0], device=counts.device)
+    # event window: only senders advance their own pointer; row ptr * N
+    # + i of each replica's (w * N, L) block of the flat ring
+    w, n, L = ring.shape[-3:]
     ptr = state["ptr"].long()
-    cur = ring[ptr, idx]
-    ring[ptr, idx] = torch.where(sender_mask[:, None], counts, cur)
+    rows = ptr * n + torch.arange(n, device=counts.device)
+    if ptr.dim() > 1:
+        rows = rows + neighbors.replica_offsets(ptr.shape[0], w * n,
+                                                counts.device)
+    flat = ring.view(-1, L)
+    cur = flat[rows]
+    flat[rows] = torch.where(sender_mask[..., None], counts, cur)
     new_ptr = torch.where(sender_mask, (state["ptr"] + 1) % cfg.omega,
                           state["ptr"])
     since = state["since_eval"] + torch.where(
@@ -77,27 +87,32 @@ def update_window(cfg: HeuristicConfig, state, counts, sender_mask, t: int):
 
 def evaluate(cfg: HeuristicConfig, state, lp, t: int, valid=None, mf=None):
     """Returns (candidate (N,), dest_lp (N,), alpha (N,), new_state,
-    n_evals). `mf` overrides cfg.mf (taken as float32)."""
-    mf = f32(cfg.mf if mf is None else mf)
-    n, L = state["ring"].shape[1:]
-    window = state["ring"].sum(0, dtype=torch.int32)  # (N, L)
+    n_evals) — with a replica axis (R, N) each and n_evals (R,). `mf`
+    overrides cfg.mf (taken as float32); a batch may give an (R,)
+    float32 tensor of per-replica MFs."""
+    if isinstance(mf, torch.Tensor):
+        mf = mf[..., None]  # (R, 1): replica r's MF against its rows
+    else:
+        mf = f32(cfg.mf if mf is None else mf)
+    L = state["ring"].shape[-1]
+    window = state["ring"].sum(-3, dtype=torch.int32)  # (..., N, L)
     safe_lp = lp.clamp(0, L - 1).long()
-    local = window.gather(1, safe_lp[:, None])[:, 0]
-    ext = window.scatter(1, safe_lp[:, None], 0)
+    local = window.gather(-1, safe_lp[..., None])[..., 0]
+    ext = window.scatter(-1, safe_lp[..., None], 0)
     eps = ext.amax(-1)
     dest = ext.argmax(-1).to(torch.int32)  # first index on ties
     alpha = div32(eps, local.clamp(min=1))
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=lp.device)
+        valid = torch.ones(lp.shape, dtype=torch.bool, device=lp.device)
     eligible = valid & ((t - state["last_mig"]) >= cfg.mt)
     if cfg.kind == 3:
         do_eval = valid & (state["since_eval"] >= cfg.zeta)
-        n_evals = do_eval.sum(dtype=torch.int32)
+        n_evals = do_eval.sum(-1, dtype=torch.int32)
         state = dict(state, since_eval=torch.where(
             do_eval, torch.zeros_like(state["since_eval"]),
             state["since_eval"]))
     else:
         do_eval = valid
-        n_evals = valid.sum(dtype=torch.int32)
+        n_evals = valid.sum(-1, dtype=torch.int32)
     candidate = do_eval & eligible & (alpha > mf) & (eps > 0)
     return candidate, dest, alpha, dict(state), n_evals

@@ -18,6 +18,13 @@ Parity with the reference's compiled program, bit for bit:
   * the cell sort is stable, and each segment is truncated at
     `capacity` keeping its first members in sorted order, so an
     overflowed grid drops the same members.
+
+Replicas. Positions may carry a leading replica axis, (R, N, 2): the
+grid then covers R worlds at once, replica r's cells offset by
+r * ncell^2 and its rows by r * N, so one stable sort orders every
+replica's SEs and replica r's segments are those of its solo grid
+(same members, same order). The sweeps and the block means read each
+replica's cells only; the overflow flag is one a replica.
 """
 from __future__ import annotations
 
@@ -68,7 +75,12 @@ def dense_lp_counts(pos, lp, sender_mask, n_lp: int, area: float,
                     rng: float, chunk: int = 1024):
     """The dense O(N^2) oracle: counts[i, l] = #{j != i :
     toroidal_dist(i, j) <= rng, lp[j] == l}, zeroed for non-senders.
-    Rows are swept in chunks, so memory is O(chunk * N)."""
+    Rows are swept in chunks, so memory is O(chunk * N). With a leading
+    replica axis, each replica is swept alone."""
+    if pos.dim() > 2:
+        return torch.stack([
+            dense_lp_counts(p, l, s, n_lp, area, rng, chunk)
+            for p, l, s in zip(pos, lp, sender_mask)])
     n = pos.shape[0]
     dev = pos.device
     rng2 = f32(rng * rng)
@@ -131,36 +143,53 @@ def make_grid_spec(n: int, area: float, rng: float,
 
 
 def cell_ids(pos, spec: GridSpec):
-    """(N,) int32 cell id per position: floor(pos * (1 / cell)), with
-    the reciprocal rounded to float32, clipped at the seam."""
+    """(..., N) int32 cell id per position: floor(pos * (1 / cell)),
+    with the reciprocal rounded to float32, clipped at the seam."""
     cxy = torch.floor(pos * f32(1.0 / f32(spec.cell))).to(torch.int32)
     cxy = cxy.clamp(0, spec.ncell - 1)
-    return cxy[:, 0] * spec.ncell + cxy[:, 1]
+    return cxy[..., 0] * spec.ncell + cxy[..., 1]
+
+
+def replica_offsets(n_rep: int, stride: int, device, dtype=torch.int64):
+    """(R, 1): r * stride, the offset of replica r's block of a flat
+    axis."""
+    return torch.arange(0, n_rep * stride, stride, dtype=dtype,
+                        device=device)[:, None]
 
 
 def build_grid(pos, spec: GridSpec):
-    """Bin positions into the CSR grid.
+    """Bin positions ((N, 2), or (R, N, 2): R worlds) into the CSR
+    grid.
 
-    Keys: cell (N,) int32 cell id per SE; order (N,) int64 the stable
-    sort permutation by cell and cell_sorted (N,) int32 = cell[order];
-    starts/counts (ncell^2,) int64 segment offsets and sizes; overflow
-    () bool — True iff some cell holds more than `capacity` SEs (members
-    past it are dropped from the segment window, so exactness requires
-    overflow == False)."""
+    Keys, over all R * N rows and R * ncell^2 cells (replica r's cells
+    offset by r * ncell^2, its rows by r * N): cell (R*N,) int32 cell id
+    per SE; order (R*N,) int64 the stable sort permutation by cell (row
+    ids across replicas) and cell_sorted (R*N,) int32 = cell[order];
+    starts/counts (R*ncell^2,) int64 segment offsets and sizes; overflow
+    () or (R,) bool — True iff some cell of the replica holds more than
+    `capacity` SEs (members past it are dropped from the segment window,
+    so exactness requires overflow == False)."""
     ncells = spec.ncell * spec.ncell
+    lead = pos.shape[:-2]
+    n_rep = math.prod(lead)
     cell = cell_ids(pos, spec)
+    if n_rep > 1:
+        cell = cell + replica_offsets(n_rep, ncells, pos.device,
+                                      torch.int32)
+    cell = cell.reshape(-1)
     cell_sorted, order = torch.sort(cell, stable=True)
-    cids = torch.arange(ncells, dtype=cell.dtype, device=pos.device)
+    cids = torch.arange(n_rep * ncells, dtype=cell.dtype, device=pos.device)
     starts = torch.searchsorted(cell_sorted, cids)
     counts = torch.searchsorted(cell_sorted, cids, right=True) - starts
     return {"cell": cell, "order": order, "cell_sorted": cell_sorted,
             "starts": starts, "counts": counts,
-            "overflow": counts.max() > spec.capacity}
+            "overflow": counts.view(lead + (ncells,)).amax(-1)
+            > spec.capacity}
 
 
 def rows_grid_counts(pos, lp, n_lp: int, area: float, rng: float,
                      spec: GridSpec, grid, row_pos, row_idx, row_sender,
-                     budget_entries: int = 0):
+                     budget_entries: int = 0, n_per_rep: int = 0):
     """Cell-list counts for a row subset against a prebuilt grid, via
     the CSR segment sweep: for each of the 9 neighbor cells every row
     reads one window of the sorted order, masked by the segment's count
@@ -169,7 +198,9 @@ def rows_grid_counts(pos, lp, n_lp: int, area: float, rng: float,
     Rows go in chunks of at most `budget_entries // window`, where the
     window is the fullest segment's count (at most `capacity`): slots
     past a segment's count are masked anyway, so a clustered world's
-    large capacity costs nothing where its cells are sparser."""
+    large capacity costs nothing where its cells are sparser.
+    With `n_per_rep` > 0, `pos` holds replicas of that many rows and a
+    row's neighbour cells are its own replica's."""
     n, dev = pos.shape[0], pos.device
     nc = spec.ncell
     order, starts = grid["order"], grid["starts"]
@@ -186,10 +217,11 @@ def rows_grid_counts(pos, lp, n_lp: int, area: float, rng: float,
         rs = row_sender[s:s + chunk]
         rc = cell_ids(rp, spec)
         cx, cy = rc // nc, rc % nc
+        base = (ri // n_per_rep) * (nc * nc) if n_per_rep else 0
         acc = torch.zeros((rp.shape[0], n_lp), dtype=torch.int32,
                           device=dev)
         for di, dj in NEIGH_OFFSETS:
-            ncid = ((cx + di) % nc) * nc + (cy + dj) % nc
+            ncid = base + ((cx + di) % nc) * nc + (cy + dj) % nc
             idx = starts[ncid][:, None] + karange[None, :]
             valid = karange[None, :] < seg_cnt[ncid][:, None]
             j = order[idx.clamp(0, n - 1)]
@@ -206,14 +238,18 @@ def grid_lp_counts_from(pos, lp, sender_mask, n_lp: int, area: float,
                         budget_entries: int = 0):
     """LP histogram over a prebuilt grid, in id order: the CSR sweep
     with every agent as a row, visited in sorted cell order (locality
-    for the segment reads), scattered back by the sort permutation."""
+    for the segment reads), scattered back by the sort permutation.
+    Takes a leading replica axis as `build_grid` does."""
+    lead, n = pos.shape[:-2], pos.shape[-2]
+    pos, lp = pos.reshape(-1, 2), lp.reshape(-1)
+    sender_mask = sender_mask.reshape(-1)
     order = grid["order"]
     out = rows_grid_counts(pos, lp, n_lp, area, rng, spec, grid,
                            pos[order], order, sender_mask[order],
-                           budget_entries)
+                           budget_entries, n_per_rep=n if lead else 0)
     counts = torch.empty_like(out)
     counts[order] = out
-    return counts
+    return counts.view(lead + (n, n_lp))
 
 
 def grid_lp_counts(pos, lp, sender_mask, n_lp: int, area: float, rng: float,
@@ -235,36 +271,40 @@ def cell_block_mean(pos, vec, spec: GridSpec, area: float):
     kernel launch on the card). Cells rolled across the seam shift their
     position sums by -+area, `fma(count, -+area, sum)` rounded once as
     XLA fuses it, and the nine rolled grids are added in the 3x3
-    offsets' order."""
+    offsets' order. With a leading replica axis every replica's cells
+    are summed in the one launch and rolled within their own grid."""
     nc = spec.ncell
+    lead, n = pos.shape[:-2], pos.shape[-2]
     grid = build_grid(pos, spec)
     cnt, sx, sy, vx, vy = cell_sums_ops.cell_sums(pos, vec, grid).view(
-        5, nc, nc).unbind(0)
+        (5,) + lead + (nc, nc)).unbind(0)
+    dims = (-2, -1)
     acc = None
     for di, dj in NEIGH_OFFSETS:
-        rc = torch.roll(cnt, (di, dj), (0, 1))
-        rsx = torch.roll(sx, (di, dj), (0, 1))
-        rsy = torch.roll(sy, (di, dj), (0, 1))
+        rc = torch.roll(cnt, (di, dj), dims)
+        rsx = torch.roll(sx, (di, dj), dims)
+        rsy = torch.roll(sy, (di, dj), dims)
         # unwrap the seam: cells rolled across it hold coordinates
         # shifted by +-area on the rolled axis
         if di:
             row = 0 if di == 1 else -1
             rsx = rsx.clone()
-            rsx[row, :] = fma32(rc[row, :], -di * area, rsx[row, :])
+            rsx[..., row, :] = fma32(rc[..., row, :], -di * area,
+                                     rsx[..., row, :])
         if dj:
             col = 0 if dj == 1 else -1
             rsy = rsy.clone()
-            rsy[:, col] = fma32(rc[:, col], -dj * area, rsy[:, col])
-        parts = (rc, rsx, rsy, torch.roll(vx, (di, dj), (0, 1)),
-                 torch.roll(vy, (di, dj), (0, 1)))
+            rsy[..., col] = fma32(rc[..., col], -dj * area, rsy[..., col])
+        parts = (rc, rsx, rsy, torch.roll(vx, (di, dj), dims),
+                 torch.roll(vy, (di, dj), dims))
         acc = list(parts) if acc is None else \
             [a + p for a, p in zip(acc, parts)]
     cell = grid["cell"].long()
-    flat = [a.reshape(-1)[cell] for a in acc]
-    others = torch.clamp(flat[0] - 1.0, min=1.0)[:, None]
-    alone = ((flat[0] - 1.0) <= 0.0)[:, None]
-    csum = torch.stack([flat[1], flat[2]], dim=1) - pos
-    vsum = torch.stack([flat[3], flat[4]], dim=1) - vec
+    flat = [a.reshape(-1)[cell].view(lead + (n,)) for a in acc]
+    others = torch.clamp(flat[0] - 1.0, min=1.0)[..., None]
+    alone = ((flat[0] - 1.0) <= 0.0)[..., None]
+    csum = torch.stack([flat[1], flat[2]], dim=-1) - pos
+    vsum = torch.stack([flat[3], flat[4]], dim=-1) - vec
     zero = torch.zeros_like(pos)
     cdelta = torch.where(alone, zero, div32(csum, others) - pos)
     vmean = torch.where(alone, zero, div32(vsum, others))

@@ -1,16 +1,19 @@
-"""The resident engine facade, the port of `repro.core.service` for one
-closed-world replica.
+"""The resident engine facade, the port of `repro.core.service` for
+closed-world replicas, one or a batch.
 
     >>> eng = Engine(cfg).init(seed=0)   # state on the card
     >>> eng.step(200)                    # window counters
     >>> eng.metrics()                    # accumulated run counters
     >>> Engine(cfg, device="cpu").run(seed=0)
+    >>> Engine(cfg).init(seeds=[0, 1, 2]).step(100, mf=[1.2, 2.0, 4.0])
+    >>> Engine(cfg).run(seeds=range(10))  # R replicas in one pass
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); without a visible GPU, `Engine(cfg)` raises rather
-than move to the CPU quietly. Replica batches, open-world churn, the
-device-state queries, telemetry and `ReplicaService` come with later
-slices and raise `NotImplementedError`, naming their ROADMAP.md item.
+than move to the CPU quietly. A batched engine (`seeds=`) returns one
+counters dict per replica. Open-world churn, the device-state queries,
+telemetry and `ReplicaService` come with later slices and raise
+`NotImplementedError`, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -44,27 +47,34 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = None
-        self._parts = []  # per-window counters
+        self._batched = False
+        self._parts = []  # per-window counters (lists, batched)
         self._weights = []
         self._steps = 0
 
     # -- lifecycle -------------------------------------------------------
 
     def init(self, seeds=None, *, seed: int = 0) -> "Engine":
-        """Materialize resident device state for one replica from
-        `seed`."""
+        """Materialize resident device state: one replica from `seed`,
+        or R stacked replicas from `seeds` (overrides `seed`)."""
         if seeds is not None:
-            _later("Engine.init(seeds=...)", "replicas")
-        self.state = _eng._init_engine(trandom.key(seed), self.cfg,
-                                       self.device)
+            self.state = _eng._init_batch(self.cfg, list(seeds),
+                                          self.device)
+            self._batched = True
+        else:
+            self.state = _eng._init_engine(trandom.key(seed), self.cfg,
+                                           self.device)
+            self._batched = False
         self._parts, self._weights, self._steps = [], [], 0
         return self
 
     def run(self, seeds=None, *, seed: int = 0):
         """One-shot run of cfg.timesteps steps: returns (final_state,
-        per-step series, counters). Does not touch the resident state."""
+        per-step series, counters); with `seeds`, the stacked states,
+        the (T, R, ...) series and a list of counters, one per replica.
+        Does not touch the resident state."""
         if seeds is not None:
-            _later("Engine.run(seeds=...)", "replicas")
+            return _eng._run_batch(self.cfg, list(seeds), self.device)
         return _eng._run(trandom.key(seed), self.cfg, self.device)
 
     def _require_state(self):
@@ -75,11 +85,16 @@ class Engine:
 
     def step(self, n: int = 1, mf=None):
         """Advance the resident state n timesteps; returns this window's
-        counters and accumulates them into `metrics()`. `mf` overrides
-        the Migration Factor for the window."""
+        counters (a list of per-replica dicts when batched) and
+        accumulates them into `metrics()`. `mf` overrides the Migration
+        Factor for the window (a batch: one value, or one a replica)."""
         self._require_state()
-        self.state, counters = _eng._run_window(self.state, self.cfg, n,
-                                                mf=mf)
+        if self._batched:
+            self.state, counters = _eng._run_window_batch(
+                self.state, self.cfg, n, mf=mf)
+        else:
+            self.state, counters = _eng._run_window(self.state, self.cfg,
+                                                    n, mf=mf)
         self._parts.append(counters)
         self._weights.append(n)
         self._steps += n
@@ -87,13 +102,22 @@ class Engine:
 
     def metrics(self) -> dict:
         """Counters accumulated over every `step` window so far, plus
-        the Eq. 8 migration_ratio over the stepped span."""
+        the Eq. 8 migration_ratio over the stepped span (a list of
+        per-replica dicts when batched)."""
         self._require_state()
         if not self._parts:
-            return {}
+            return [] if self._batched else {}
+        per_k = self.cfg.abm.n_se * (max(self._steps, 1) / 1000.0)
+        if self._batched:
+            out = []
+            for r in range(len(self._parts[0])):
+                c = merge_counters([p[r] for p in self._parts],
+                                   self._weights)
+                c["migration_ratio"] = c["migrations"] / per_k
+                out.append(c)
+            return out
         c = merge_counters(self._parts, self._weights)
-        c["migration_ratio"] = c["migrations"] / (
-            self.cfg.abm.n_se * (max(self._steps, 1) / 1000.0))
+        c["migration_ratio"] = c["migrations"] / per_k
         return c
 
     # -- later slices ----------------------------------------------------

@@ -1,5 +1,6 @@
 """Replica statistics and window merging — the port's own copy of the
-part of `repro.core.stats` this slice uses. Host-only, math only.
+part of `repro.core.stats` the engine, its replica batches and their
+summaries use. Host-only, math only.
 
 The schema of one reported metric is {"mean", "std", "ci95", "n"}:
 `std` is the sample standard deviation (ddof=1) and `ci95` the
@@ -43,6 +44,25 @@ def replica_stats(values: Sequence[float]) -> Dict[str, float]:
     std = math.sqrt(sum((x - mean) ** 2 for x in xs) / (n - 1))
     return {"mean": mean, "std": std,
             "ci95": t95(n - 1) * std / math.sqrt(n), "n": n}
+
+
+def is_stats(obj) -> bool:
+    """Is `obj` a mean/std/ci95/n stats dict (the BENCH metric
+    schema)?"""
+    return isinstance(obj, dict) and {"mean", "std", "ci95", "n"} <= set(obj)
+
+
+def percentile(values: Sequence[float], q: float) -> float:
+    """Linear-interpolation percentile (numpy's default method), math
+    only."""
+    xs = sorted(float(v) for v in values)
+    if not xs:
+        raise ValueError("percentile needs at least one value")
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"q must be in [0, 100], got {q}")
+    k = (len(xs) - 1) * (q / 100.0)
+    lo, hi = math.floor(k), math.ceil(k)
+    return xs[lo] + (xs[hi] - xs[lo]) * (k - lo)
 
 
 def merge_counters(parts: Sequence[Dict], weights: Sequence[float]) -> Dict:

@@ -27,7 +27,12 @@ KERNELS = (kernel,)
 def cell_sums(pos, vec, grid):
     """(5, ncells) float32: per cell, the member count and the sums of
     pos[:, 0], pos[:, 1], vec[:, 0] and vec[:, 1], each added in id
-    order from 0, over the CSR grid `neighbors.build_grid(pos, spec)`."""
+    order from 0, over the CSR grid `neighbors.build_grid(pos, spec)`.
+    With a leading replica axis ((R, N, 2) rows, a grid of R worlds)
+    the cells are all R * ncell^2, summed in the one launch: the CSR
+    order holds row ids across replicas, so the kernel needs no replica
+    index."""
+    pos, vec = pos.reshape(-1, 2), vec.reshape(-1, 2)
     if pos.device.type == "cpu":
         return ref.cell_sums_plain(pos, vec, grid)
     on_cuda("cell_sums", pos)

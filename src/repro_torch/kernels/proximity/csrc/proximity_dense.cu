@@ -31,7 +31,11 @@
 //     int32 atomicAdd across the recipient ranges; `out` is zeroed by a
 //     cudaMemsetAsync on the same stream inside the launch function.
 //     Integer addition is exact and commutative, so the counts are
-//     bit-identical from run to run.
+//     bit-identical from run to run;
+//   * R replicas (independent worlds of N rows each, stacked) are one
+//     launch: blockIdx.z is the replica, whose rows, recipients and
+//     output rows a block offsets by r * N, so it tests its own
+//     replica's pairs only.
 //
 // Per pair it evaluates exactly the reference's compiled expression
 //   d = |pi - pj|; d = min(d, area - d); fma(dx, dx, dy * dy) <= rng^2
@@ -99,6 +103,12 @@ __global__ void __launch_bounds__(THREADS) dense_lp_counts_kernel(
     const uint8_t* __restrict__ sender,  // (n,) 0/1
     int n, int n_lp, float area, float rng2, int col_width,
     int32_t* __restrict__ out) {         // (n, n_lp), zeroed
+  // replica blockIdx.z: its n rows (the pointers above are replica 0's)
+  const int64_t rep = blockIdx.z;
+  pos += rep * n;
+  lp += rep * n;
+  sender += rep * n;
+  out += rep * n * n_lp;
   constexpr int W = NT * 8;  // histogram width in shared memory
   __shared__ int s_id[ROWS];
   __shared__ float s_x[ROWS], s_y[ROWS];
@@ -215,18 +225,18 @@ __global__ void empty_kernel() {}
 
 template <int NT>
 void launch(const void* pos, const void* lp, const void* sender, int n,
-            int n_lp, float area, float rng2, void* out, int sms,
+            int n_lp, float area, float rng2, void* out, int n_rep, int sms,
             cudaStream_t stream) {
-  // row tiles x recipient ranges of at most STAGE recipients, and at
-  // least two blocks an SM
+  // row tiles x recipient ranges of at most STAGE recipients, x the
+  // replicas, and at least two blocks an SM
   const int row_tiles = (n + ROWS - 1) / ROWS;
-  int ranges = max((2 * sms + row_tiles - 1) / row_tiles,
+  int ranges = max((2 * sms + row_tiles * n_rep - 1) / (row_tiles * n_rep),
                    (n + STAGE - 1) / STAGE);
   ranges = min(ranges, (n + 31) / 32);
   int col_width = (n + ranges - 1) / ranges;
   col_width = (col_width + 31) / 32 * 32;
   ranges = (n + col_width - 1) / col_width;
-  dense_lp_counts_kernel<NT><<<dim3(row_tiles, ranges), THREADS, 0,
+  dense_lp_counts_kernel<NT><<<dim3(row_tiles, ranges, n_rep), THREADS, 0,
                                stream>>>(
       static_cast<const float2*>(pos), static_cast<const int32_t*>(lp),
       static_cast<const uint8_t*>(sender), n, n_lp, area, rng2, col_width,
@@ -235,28 +245,31 @@ void launch(const void* pos, const void* lp, const void* sender, int n,
 
 }  // namespace
 
+// n: the rows of one replica; pos, lp, sender and out hold n_rep of them.
 extern "C" int dense_lp_counts_launch(const void* pos, const void* lp,
                                       const void* sender, int n, int n_lp,
                                       float area, float rng2, void* out,
-                                      void* stream) {
-  if (n <= 0) return 0;
-  if (n_lp < 1 || n_lp > 64) return static_cast<int>(cudaErrorInvalidValue);
+                                      int n_rep, void* stream) {
+  if (n <= 0 || n_rep <= 0) return 0;
+  if (n_lp < 1 || n_lp > 64 || n_rep > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * size_t(n) * n_lp, s);
+    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * size_t(n) * n_lp * n_rep,
+                          s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lp <= 8) {
-    launch<1>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
+    launch<1>(pos, lp, sender, n, n_lp, area, rng2, out, n_rep, sms, s);
   } else if (n_lp <= 16) {
-    launch<2>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
+    launch<2>(pos, lp, sender, n, n_lp, area, rng2, out, n_rep, sms, s);
   } else if (n_lp <= 32) {
-    launch<4>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
+    launch<4>(pos, lp, sender, n, n_lp, area, rng2, out, n_rep, sms, s);
   } else {
-    launch<8>(pos, lp, sender, n, n_lp, area, rng2, out, sms, s);
+    launch<8>(pos, lp, sender, n, n_lp, area, rng2, out, n_rep, sms, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

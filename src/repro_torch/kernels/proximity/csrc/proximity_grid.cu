@@ -50,7 +50,15 @@
 //     keeping its own counts in shared memory: any capacity works;
 //   * every row is written exactly once, by the warp that holds it
 //     (non-senders get zeros), so the output needs no memset; the head
-//     and the tail of a cell are disjoint and cover it.
+//     and the tail of a cell are disjoint and cover it;
+//   * R replicas (independent worlds of the same geometry) are one
+//     launch: the CSR grid spans R * ncell^2 cells, replica r's at
+//     r * ncell^2, and `order` holds row ids across replicas (r * N + i),
+//     so a member is read by its row id as before; the cell blocks'
+//     grid rows run over R * ncell (replica r's grid row cx is
+//     r * ncell + cx) and a cell's neighbours are taken within its own
+//     replica; the row blocks cover every replica's crowded tails, as a
+//     cell id names its replica.
 //
 // Per pair it evaluates exactly the reference's compiled expression:
 //   d = |pi - pj|; d = min(d, area - d); fma(dx, dx, dy * dy) <= rng^2
@@ -96,13 +104,14 @@ struct Grid {
   int32_t* out;           // (n, n_lp) id order
 };
 
-// Cell (cx, cy)'s windows into `win`, lane g < 9 reading neighbour g
-// (row-major 3x3, lane 4 the centre; each window the first
-// min(count, capacity) members); returns the centre's (start, count) on
-// every lane. Every lane calls it; `valid` false reads nothing.
+// Cell (cx, cy) of the replica whose cells start at `base`: its windows
+// into `win`, lane g < 9 reading neighbour g (row-major 3x3, lane 4 the
+// centre; each window the first min(count, capacity) members); returns
+// the centre's (start, count) on every lane. Every lane calls it;
+// `valid` false reads nothing.
 __device__ __forceinline__ int2 read_windows(const Grid& G, Windows& win,
-                                             int cx, int cy, bool valid,
-                                             int lane) {
+                                             int base, int cx, int cy,
+                                             bool valid, int lane) {
   int seg_start = 0, seg_len = 0, cell_count = 0;
   if (valid && lane < 9) {
     const int ncell = G.ncell;
@@ -111,7 +120,7 @@ __device__ __forceinline__ int2 read_windows(const Grid& G, Windows& win,
     nx -= nx >= ncell ? ncell : 0;
     ny += ny < 0 ? ncell : 0;
     ny -= ny >= ncell ? ncell : 0;
-    const int nc = nx * ncell + ny;
+    const int nc = base + nx * ncell + ny;
     seg_start = static_cast<int>(G.starts[nc]);
     cell_count = static_cast<int>(G.counts[nc]);
     seg_len = min(cell_count, G.capacity);
@@ -268,7 +277,8 @@ __device__ __forceinline__ void sweep(const Grid& G, const Windows& win,
 }
 
 // LB bits of LP (n_lp <= 2^LB): lane l counts LP l, and l + 32 for LB 6.
-// Blocks with blockIdx.y < row_y are row blocks, the rest cell blocks.
+// Blocks with blockIdx.y < row_y are row blocks, the rest cell blocks
+// (grid row blockIdx.y - row_y of the R replicas' stacked grids).
 // Five blocks an SM (48 registers) up to 16 LPs; four above, where 48
 // registers would spill.
 template <int LB>
@@ -303,7 +313,10 @@ __global__ void __launch_bounds__(THREADS, LB <= 4 ? 5 : 4)
     const unsigned mine = __ballot_sync(FULL, tail);
     if (!mine) return;
     const int c = __shfl_sync(FULL, cell, __ffs(mine) - 1);
-    read_windows(G, win[warp], c / G.ncell, c % G.ncell, true, lane);
+    const int cells = G.ncell * G.ncell;
+    const int base = c / cells * cells, local = c - base;
+    read_windows(G, win[warp], base, local / G.ncell, local % G.ncell, true,
+                 lane);
     __syncwarp();
     sweep<LB, BATCH>(G, win[warp], tail, row, partial[warp], lane);
     return;
@@ -311,9 +324,11 @@ __global__ void __launch_bounds__(THREADS, LB <= 4 ? 5 : 4)
 
   // cell block, pass 1: a warp per cell reads its windows
   {
-    const int cx = blockIdx.y - row_y, cy = blockIdx.x * WARPS + warp;
-    const int2 centre =
-        read_windows(G, win[warp], cx, cy, cy < G.ncell, lane);
+    const int gy = blockIdx.y - row_y;  // r * ncell + cx
+    const int r = gy / G.ncell, cx = gy - r * G.ncell;
+    const int cy = blockIdx.x * WARPS + warp;
+    const int2 centre = read_windows(G, win[warp], r * G.ncell * G.ncell, cx,
+                                     cy, cy < G.ncell, lane);
     if (lane == 0) {
       row_start[warp] = centre.x;
       rows[warp] = min(centre.y, HEAD);
@@ -348,13 +363,16 @@ template <int LB>
 void launch(const void* pos, const void* lp, const void* sender,
             const void* order, const void* cell_sorted, const void* starts,
             const void* counts, int n, int ncell, int capacity, int n_lp,
-            float area, float rng2, void* out, cudaStream_t stream) {
+            float area, float rng2, void* out, int n_rep,
+            cudaStream_t stream) {
   // row blocks first (a crowded cell's tail starts early), a warp for
-  // each 32 sorted rows; then a block for each WARPS cells of a grid row
+  // each 32 sorted rows of all replicas; then a block for each WARPS
+  // cells of a grid row, over the R replicas' grid rows
   const int bx = (ncell + WARPS - 1) / WARPS;
   const int row_blocks = (n + THREADS - 1) / THREADS;
   const int row_y = (row_blocks + bx - 1) / bx;
-  grid_lp_counts_kernel<LB><<<dim3(bx, row_y + ncell), THREADS, 0, stream>>>(
+  grid_lp_counts_kernel<LB>
+      <<<dim3(bx, row_y + n_rep * ncell), THREADS, 0, stream>>>(
       static_cast<const float2*>(pos), static_cast<const int32_t*>(lp),
       static_cast<const uint8_t*>(sender),
       static_cast<const int64_t*>(order),
@@ -366,14 +384,16 @@ void launch(const void* pos, const void* lp, const void* sender,
 
 }  // namespace
 
+// n: the rows of all n_rep replicas; the grid spans n_rep * ncell^2 cells.
 extern "C" int grid_lp_counts_launch(
     const void* pos, const void* lp, const void* sender, const void* order,
     const void* cell_sorted, const void* starts, const void* counts, int n,
     int ncell, int capacity, int n_lp, float area, float rng2, void* out,
-    void* stream) {
+    int n_rep, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_lp < 1 || n_lp > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_lp < 1 || n_lp > 64 || n_rep < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   // LB bits of LP: n_lp <= 2^LB
   auto* go = n_lp <= 4    ? launch<2>
              : n_lp <= 8  ? launch<3>
@@ -381,7 +401,7 @@ extern "C" int grid_lp_counts_launch(
              : n_lp <= 32 ? launch<5>
                           : launch<6>;
   go(pos, lp, sender, order, cell_sorted, starts, counts, n, ncell, capacity,
-     n_lp, area, rng2, out, s);
+     n_lp, area, rng2, out, n_rep, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,11 +19,22 @@ and folding run on the host and never wait for the card; only the
 samplers, which take a `device`, produce device tensors. All 32-bit
 arithmetic runs in int64 masked to 32 bits, which gives the same bits on
 the CPU and on CUDA.
+
+A key batch (`keys(seeds)`) is an (R, 2) tensor, one replica's key a
+row: what `jax.vmap` of each function computes, row r bit-equal to the
+solo call on key r. `split` of a batch returns (n, R, 2) (subkey i of
+every replica in row i), so `a, b = split(k)` unpacks a batch as it
+unpacks one key. Splitting and folding hash the R keys together in
+numpy int64 arrays; a sampler draws (R, *shape) in one set of tensor
+ops, with the R key words handed to the card by a non-blocking copy
+from a fresh pinned buffer (PyTorch's pinned-memory cache does not hand
+the buffer out again until the copy has run).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.fp32 import f32, fma32
@@ -57,46 +68,88 @@ def _words(key) -> tuple:
     return int(k[0]), int(k[1])
 
 
+def _batch_words(keys) -> tuple:
+    """A key batch's two words, as (R,) numpy int64 arrays."""
+    a = keys.numpy()
+    return a[:, 0], a[:, 1]
+
+
 def key(seed: int):
     """The key `jax.random.key(seed)` holds (its `key_data`)."""
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64)
 
 
+def keys(seeds):
+    """(R, 2): the keys of `seeds`, one a row (`key(seeds[r])`)."""
+    return torch.tensor([[0, int(s) & _MASK] for s in seeds],
+                        dtype=torch.int64).reshape(-1, 2)
+
+
 def wrap_key_data(data):
-    """A key from its two uint32 words (numpy or tensor)."""
-    return torch.as_tensor([int(w) for w in list(data)], dtype=torch.int64)
+    """A key, or an (R, 2) key batch, from its uint32 words (numpy or
+    tensor)."""
+    return torch.from_numpy(
+        np.asarray(data).astype(np.uint32).astype(np.int64))
 
 
 def split(key, n: int = 2):
     """(n, 2) keys, as `jax.random.split(key, n)` (hashed on the host,
-    in Python integers)."""
+    in Python integers). A batch gives (n, R, 2): row i is
+    `jax.vmap(split)(keys)[:, i]`."""
+    if key.dim() == 2:
+        k1, k2 = _batch_words(key)
+        i = np.arange(n, dtype=np.int64)[:, None]
+        a, b = threefry2x32(k1[None, :], k2[None, :], 0, i)
+        return torch.from_numpy(np.stack([a, b], axis=-1))
     k1, k2 = _words(key)
     return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(n)],
                         dtype=torch.int64)
 
 
 def fold_in(key, data: int):
-    """`jax.random.fold_in(key, data)`."""
+    """`jax.random.fold_in(key, data)`, of one key or of each key of a
+    batch."""
+    d = int(data) & _MASK
+    if key.dim() == 2:
+        k1, k2 = _batch_words(key)
+        return torch.from_numpy(np.stack(threefry2x32(k1, k2, 0, d),
+                                         axis=-1))
     k1, k2 = _words(key)
-    return torch.tensor(threefry2x32(k1, k2, 0, int(data) & _MASK),
-                        dtype=torch.int64)
+    return torch.tensor(threefry2x32(k1, k2, 0, d), dtype=torch.int64)
+
+
+def _words_on(keys, device):
+    """The (R, 2) key batch on `device`: on the card through a fresh
+    pinned buffer, copied without blocking the host."""
+    if device is None or torch.device(device).type == "cpu":
+        return keys
+    return keys.pin_memory().to(device, non_blocking=True)
 
 
 def random_bits(key, shape, device=None):
     """32-bit draws (int64 holding uint32) of `shape`, as
-    `jax.random.bits(key, shape, uint32)`."""
-    k1, k2 = _words(key)
+    `jax.random.bits(key, shape, uint32)`; (R, *shape) from a batch,
+    row r the draw from key r."""
+    shape = tuple(shape)
     n = math.prod(shape)
     if n >= 1 << 32:
         raise NotImplementedError("more than 2**32 draws from one key")
+    if key.dim() == 2:
+        if key.shape[0] == 1:  # one replica: its words as scalars
+            return random_bits(key[0], shape, device)[None]
+        kd = _words_on(key, device)
+        k1, k2 = kd[:, :1], kd[:, 1:]
+    else:
+        k1, k2 = _words(key)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, 0, lo)
-    return (b1 ^ b2).reshape(shape)
+    return (b1 ^ b2).reshape(tuple(b1.shape[:-1]) + shape)
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
             device=None):
-    """float32 draws in [minval, maxval), as `jax.random.uniform`. The
+    """float32 draws in [minval, maxval), as `jax.random.uniform` (of
+    `shape`, or (R, *shape) from a key batch). The
     scale-and-shift is one float32 multiply-add rounded once, the
     fused form XLA compiles it to (a plain multiply when minval is 0)."""
     bits = random_bits(key, shape, device)

@@ -136,7 +136,8 @@ def test_rejects_what_the_reference_rejects(which, fields):
 
 
 LATER = [
-    lambda: T.Engine(T.EngineConfig(), device="cpu").run(seeds=[0, 1]),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").init(
+        seeds=[0, 1]).depart([0]),
     lambda: T.Engine(T.EngineConfig(), device="cpu").depart([0]),
     lambda: T.Engine(T.EngineConfig(), device="cpu").query_neighbors([0]),
     lambda: T.Engine(T.EngineConfig(), device="cpu").population(),
@@ -145,7 +146,8 @@ LATER = [
     lambda: T.EngineConfig(open_world=True),
     lambda: T.EngineConfig(obs=TObs(enabled=True)),
     lambda: T.Engine(T.EngineConfig(), device="cpu").ledger(),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").init(seeds=[0, 1]),
+    lambda: T.Engine(T.EngineConfig(sharding="lp_device"),
+                     device="cpu").run(seeds=[0, 1]),
     lambda: T.Engine(T.EngineConfig(), device="cpu").arrive({}),
     lambda: T.Engine(T.EngineConfig(), device="cpu").query_lcr(),
     lambda: T.ReplicaService(T.EngineConfig(), 2),
