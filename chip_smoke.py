@@ -34,7 +34,12 @@ and prints no result):
               kernel on kmeans' and bestresponse's costs. The batched
               shapes (replicas stacked on a leading axis, one launch
               for all): the cell-list kernel at 10 x 10k SEs, the dense
-              kernel at 4 x 2,000 and the cell sums at 4 x 10k flock SEs
+              kernel at 4 x 2,000 and the cell sums at 4 x 10k flock SEs.
+              The open-world shapes (dead rows: lp -1, out of the grid):
+              the cell-list kernel on 10k slots with a dead tail of
+              2,000, solo and at R = 4, its output memory filled with a
+              nonzero pattern first (every dead row must come out
+              zero), and the dense kernel at 2,000 SEs, 500 of them dead
   4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
@@ -58,12 +63,26 @@ and prints no result):
               environments; then one `bestresponse` init (8 dense and
               8 capacity-assign launches); launch counts set to 0 just
               before each run
+  5b. service the resident service at full width (the default config,
+              10k slots, open_world=True): zero churn for 300 steps,
+              bit-equal to the closed world; exp9's churn loop (n_active
+              9,800, 120 x depart 200 / arrive 200 / step 1: events/s,
+              step p50 / p99, population held, one cell-list launch a
+              step); query_lcr, query_region (a quadrant, a box across
+              the seam) and query_neighbors of 64 ids against brute
+              force on the card; ReplicaService with 4 slots and 12
+              requests of 60-300 steps, and 3 slots and 5 requests of
+              hotspot + kmeans every 50 steps: every request's counters
+              its solo run's, t_service / t_sequential printed
   6. scale    a 1M-SE window (area 100,000, paper density)
   7. cpu      the port on the card against the port on the CPU, for rwp
-              and every scenario at 2,000 SEs: integer series identical,
-              positions within one ULP of `area` (kmeans, voronoi and
-              flock: their agreement is printed); and batched rwp and
-              hotspot runs (R = 3) held the same way
+              and every scenario at 2,000 SEs, 100 steps: integer series
+              identical, positions within one ULP of `area` (kmeans,
+              voronoi and flock: their agreement is printed); batched
+              rwp and hotspot runs (R = 3) held the same way; an open
+              world under churn (100 steps of 20 departures and arrivals)
+              and a 3-slot ReplicaService of 5 requests, counters
+              identical
   8. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
               random weights drawn on the card) serving 16 prompts of
               512 tokens and 64 greedy steps with GAIA expert placement
@@ -99,7 +118,8 @@ untraced and 8 traced decode steps.
 
     python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
         --scale-steps 3 --cpu-steps 20 --epi-steps 50 \
-        --scenario-steps 110 --replica-scenario-steps 20 --tune-steps 200
+        --scenario-steps 110 --replica-scenario-steps 20 --tune-steps 200 \
+        --service-iters 20 --service-requests 4
 
 is a shake-out run that cuts every phase short (--gen sets the serve
 phase's decode steps).
@@ -320,25 +340,55 @@ def scenario_world(mobility: str, seed: int, dev, **abm):
     return cfg, init_abm(trandom.key(seed), cfg, dev)
 
 
-def _grid_pairs(pos, snd, spec):
-    """The pair tests a cell-list sweep of one world makes: every sender
-    tests the members of its 9 cells' windows (up to capacity), less
-    itself where it is in one."""
+def _grid_pairs(pos, snd, spec, valid=None):
+    """The pair tests a cell-list sweep of one world makes: every live
+    sender tests the members of its 9 cells' windows (up to capacity),
+    less itself where it is in one (a dead row tests nothing)."""
     from repro_torch.core import neighbors
-    grid = neighbors.build_grid(pos, spec)
+    grid = neighbors.build_grid(pos, spec, valid=valid)
     seg = grid["counts"].clamp(max=spec.capacity)
-    nc = spec.ncell
-    cx, cy = grid["cell"] // nc, grid["cell"] % nc
+    nc, ncells = spec.ncell, seg.shape[0]
+    cell = neighbors.cell_ids(pos, spec).long()
+    cx, cy = cell // nc, cell % nc
     cand = sum(seg[((cx + di) % nc) * nc + (cy + dj) % nc]
                for di in (-1, 0, 1) for dj in (-1, 0, 1))
+    live = grid["cell_sorted"] < ncells
     rank = torch.arange(pos.shape[0], device=pos.device) \
-        - grid["starts"][grid["cell_sorted"]]
+        - grid["starts"][grid["cell_sorted"].clamp(max=ncells - 1)]
     in_window = torch.empty_like(rank)
-    in_window[grid["order"]] = (rank < spec.capacity).long()
+    in_window[grid["order"]] = ((rank < spec.capacity) & live).long()
+    if valid is not None:
+        snd = snd & valid
     return int((cand - in_window)[snd].sum())
 
 
-def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
+def dirty(nbytes: int, dev) -> int:
+    """Fill a fresh block of `nbytes` on the card with a nonzero pattern
+    and free it, so that the caching allocator hands it to the next
+    allocation of that size; returns its address."""
+    torch.cuda.empty_cache()
+    junk = torch.full((nbytes // 4,), 0x5A5A5A5A, dtype=torch.int32,
+                      device=dev)
+    ptr = junk.data_ptr()
+    del junk
+    return ptr
+
+
+def dead_rows(shape, n_dead: int, dev, tail=True):
+    """(..., N) bool live-row masks with `n_dead` dead rows a world: the
+    last ones (`tail`: the service's free slots at init), or a seeded
+    scatter (after churn)."""
+    n = shape[-1]
+    if tail:
+        live = torch.arange(n, device=dev) < n - n_dead
+        return live.expand(shape).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(n_dead)
+    keys = torch.rand(shape, generator=g)
+    return (keys.argsort(-1).argsort(-1) >= n_dead).to(dev)
+
+
+def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
+               dead=0):
     """The cell-list kernel against its plain version, exactly, on the
     engine's own world, on three blobs (layout "clustered": the grid
     must overflow and the drop set matters), on an exp6 hotspot world
@@ -346,7 +396,11 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
     as the epidemic's exposure sweep (layout "epidemic": n_lp = 2, the
     infectious senders' 0/1 labels, the susceptible rows). With
     `replicas` > 1, that many engine worlds (seeds seed, seed + 1, ...)
-    stacked as a batched step gives them: one launch for all."""
+    stacked as a batched step gives them: one launch for all. With
+    `dead` > 0, an open world's: that many dead rows a world at its
+    tail (lp -1, their sender flags left set), binned out of the grid,
+    the output's memory filled with a nonzero pattern before the call,
+    and every dead row must come out zero."""
     from repro_torch import random as trandom
     from repro_torch.core import neighbors
     from repro_torch.core.abm import epidemic_send_prob
@@ -374,24 +428,34 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
         lp = ((st["epi"] > 0) & hot).to(torch.int32)
         snd = st["epi"] == 0
     spec = cfg.grid_spec()
-    grid = neighbors.build_grid(pos, spec)
+    valid = dead_rows(snd.shape, dead, dev) if dead else None
+    if dead:
+        lp = torch.where(valid, lp, -1)
+    grid = neighbors.build_grid(pos, spec, valid=valid)
     args = (pos, lp, snd, n_lp, area, rng, spec, grid)
+    ptr = dirty(snd.numel() * n_lp * 4, dev)
     got = ops.proximity_lp_counts_grid(*args)
     want = ref.grid_lp_counts_plain(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     overflow = bool(grid["overflow"].any())
-    if err != 0 or overflow != (layout == "clustered"):
-        raise AssertionError(f"grid kernel at n={n}, {layout}: "
-                             f"max_abs_err={err}, overflow={overflow}")
+    dead_zero = not dead or bool((got[~valid] == 0).all())
+    if dead and got.data_ptr() != ptr:
+        raise AssertionError("the cell-list kernel's output did not land "
+                             "in the dirtied block")
+    if err != 0 or overflow != (layout == "clustered") or not dead_zero:
+        raise AssertionError(f"grid kernel at n={n}, {layout}, {dead} dead:"
+                             f" max_abs_err={err}, overflow={overflow}, "
+                             f"dead rows zero {dead_zero}")
     ops.reset_launches()
     ops.proximity_lp_counts_grid(*args)
     if ops.grid_kernel.launches != 1:
         raise AssertionError(f"grid kernel at {replicas} x {n}: "
                              f"{ops.grid_kernel.launches} launches a call")
     # work this run's data needs, a world at a time
-    pairs = sum(_grid_pairs(p, s, spec) for p, s in
-                zip(pos.view(-1, n, 2), snd.view(-1, n)))
+    live = valid if dead else torch.ones_like(snd)
+    pairs = sum(_grid_pairs(p, s, spec, v) for p, s, v in
+                zip(pos.view(-1, n, 2), snd.view(-1, n), live.view(-1, n)))
     nc = spec.ncell
     # pos, lp, sender flag, order and cell_sorted per row, the CSR
     # offsets, the output
@@ -399,10 +463,12 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
     nbytes = rows * (8 + 4 + 1 + 8 + 4) + replicas * nc * nc * 16 \
         + rows * n_lp * 4
     call = lambda: ops.proximity_lp_counts_grid(*args)  # noqa: E731
+    dead_kw = {"dead_rows": dead, "dead_rows_zero": dead_zero,
+               "output_dirtied": True} if dead else {}
     return {"n": n, "replicas": replicas, "area": area, "range": rng,
             "layout": layout, "n_lp": n_lp, "capacity": spec.capacity,
             "max_cell": int(grid["counts"].max()), "overflow": overflow,
-            "max_abs_err": err, "ms": time_ms(call),
+            **dead_kw, "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "grid_lp_counts_kernel"),
             **call_profile(call),
             "plain_ms": time_ms(lambda: ref.grid_lp_counts_plain(*args),
@@ -411,11 +477,15 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1):
             "library_ms": None}
 
 
-def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1):
+def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1,
+                dead=0):
     """The dense kernel against its plain version, exactly; with
     `all_senders`, as `bestresponse` calls it (every SE a sender, on
     the stripe partition's map); with `replicas` > 1, that many worlds
-    stacked as a batched step gives them (one launch)."""
+    stacked as a batched step gives them (one launch); with `dead` > 0,
+    an open world's (that many dead rows scattered over the world: lp
+    -1, no sender, as the engine hands them; they must come out
+    zero)."""
     from repro_torch.kernels.proximity import ops, ref
     if replicas > 1:
         worlds = [world(n, area, rng, seed + r, dev) for r in range(replicas)]
@@ -430,23 +500,30 @@ def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1):
         lp = part.partition(None, pos, torch.ones(n, device=dev),
                             part.PartitionConfig(backend="stripe",
                                                  area=area))
+    if dead:
+        valid = dead_rows(snd.shape, dead, dev, tail=False)
+        lp, snd = torch.where(valid, lp, -1), snd & valid
     args = (pos, lp, snd, cfg.n_lp, area, rng)
     got = ops.proximity_lp_counts(*args)
     want = ref.dense_lp_counts_plain(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    if err != 0:
-        raise AssertionError(f"dense kernel at n={n}: max_abs_err={err}")
+    dead_zero = not dead or bool((got[~valid] == 0).all())
+    if err != 0 or not dead_zero:
+        raise AssertionError(f"dense kernel at n={n}, {dead} dead: "
+                             f"max_abs_err={err}, dead rows zero {dead_zero}")
     ops.reset_launches()
     ops.proximity_lp_counts(*args)
     if ops.dense_kernel.launches != 1:
         raise AssertionError(f"dense kernel at {replicas} x {n}: "
                              f"{ops.dense_kernel.launches} launches a call")
-    pairs = int(snd.sum()) * (n - 1)
+    pairs = int(snd.sum()) * (n - dead - 1)  # live candidates only
     nbytes = replicas * (n * (8 + 4 + 1) + n * cfg.n_lp * 4)
     call = lambda: ops.proximity_lp_counts(*args)  # noqa: E731
     return {"n": n, "replicas": replicas, "area": area, "range": rng,
             "all_senders": all_senders,
+            **({"dead_rows": dead, "dead_rows_zero": dead_zero}
+               if dead else {}),
             "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "dense_lp_counts_kernel"),
             **call_profile(call),
@@ -1267,9 +1344,71 @@ def card_vs_cpu(steps: int, dev):
              lp_equal=torch.equal(gst["lp"].cpu(), cst["lp"]))
         if bad or ulps > 1.0 or not torch.equal(gst["lp"].cpu(), cst["lp"]):
             bad_runs.append(name)
+    bad_runs += cpu_service(steps, dev)
     if bad_runs:
         raise AssertionError(f"the card's run differs from the CPU's: "
                              f"{bad_runs}")
+
+
+def churn_script(cfg, dev, steps: int, batch: int = 20, seed: int = 0):
+    """An open world under churn through `Engine`: each step departs
+    `batch` random live ids and admits `batch` uniform positions (one
+    numpy stream, the same on any device), then steps once. Returns the
+    ids each arrival got, each step's counters and the engine."""
+    import numpy as np
+
+    from repro_torch.core import Engine
+    eng = Engine(cfg, device=dev).init(seed=seed)
+    g = np.random.default_rng(seed)
+    ids, per_step = [], []
+    for _ in range(steps):
+        eng.depart(g.choice(eng.live_ids(), batch, replace=False))
+        ids.append(eng.arrive({"pos": g.uniform(0, cfg.abm.area,
+                                                (batch, 2))}))
+        per_step.append(eng.step(1))
+    return ids, per_step, eng
+
+
+def cpu_service(steps: int, dev) -> list:
+    """Phase cpu's service runs, card against CPU at 2,000 SEs (area
+    4,472): the churn script over `steps` steps (n_active 1,960, 20
+    departures and arrivals a step; ids and every step's counters
+    identical, positions within one ULP of `area`), and a 3-slot
+    ReplicaService of 5 unequal requests (counters identical). Returns
+    the names of the runs that differ."""
+    from repro_torch.core import ReplicaService
+    area, bad_runs = 4472.0, []
+    cfg = dataclasses.replace(exp6_cfg("rwp", steps, n=2000, area=area),
+                              open_world=True, n_active=1960)
+    gids, gsteps, geng = churn_script(cfg, dev, steps)
+    cids, csteps, ceng = churn_script(cfg, "cpu", steps)
+    first = next((i for i, (a, b) in enumerate(zip(gsteps, csteps))
+                  if a != b), None)
+    ulps = float((geng.state["pos"].cpu() - ceng.state["pos"]).abs().max()) \
+        / (area * ULP)
+    lp_equal = torch.equal(geng.state["lp"].cpu(), ceng.state["lp"])
+    emit(phase="cpu", run="rwp churn", held="bitwise", n_se=2000,
+         n_active=1960, steps=steps, ids_equal=gids == cids,
+         first_mismatch_step=first, max_pos_gap_area_ulps=ulps,
+         lp_equal=lp_equal, population=geng.population(),
+         migrations=sum(c["migrations"] for c in gsteps))
+    if gids != cids or first is not None or ulps > 1.0 or not lp_equal:
+        bad_runs.append("rwp churn")
+    cfg = exp6_cfg("rwp", 0, n=2000, area=area)
+    jobs = list(zip(range(5), (40, 15, 30, 20, 25)))
+    res = []
+    for d in (dev, "cpu"):
+        svc = ReplicaService(cfg, 3, device=d)
+        rids = [svc.submit(s, n) for s, n in jobs]
+        out = svc.drain()
+        res.append([out[r] for r in rids])
+    same = res[0] == res[1]
+    emit(phase="cpu", run="replica_service", held="bitwise", n_se=2000,
+         slots=3, steps=[n for _, n in jobs], counters_equal=same,
+         migrations=[c["migrations"] for c in res[0]])
+    if not same:
+        bad_runs.append("replica_service")
+    return bad_runs
 
 
 def exp6_trace(n: int, area: float, steps: int) -> str:
@@ -1395,6 +1534,230 @@ def scenarios(epi_steps: int, steps: int, dev):
     return launches
 
 
+#: the service phase's churn batch (exp9's CHURN_BATCH) and slots
+CHURN_BATCH = 200
+SERVICE_SLOTS = 4
+#: integer counters a request must share with its solo run
+REQUEST_COUNTERS = ("migrations", "local_msgs", "remote_msgs", "heu_evals",
+                    "repartitions")
+
+
+def request_lengths(n: int, lo: int = 60, hi: int = 300) -> list:
+    """n unequal request lengths spread over [lo, hi] (a fixed shuffle
+    of the range, so slots finish apart)."""
+    return [lo + (hi - lo) * ((5 * i) % 12) // 11 for i in range(n)]
+
+
+def replica_service(cfg, jobs, slots: int, dev, what: str):
+    """Drain `jobs` (seed, steps) through a ReplicaService of `slots`
+    slots, and run each solo, in that order; every request's integer
+    counters must equal its solo run's. Returns the row to print (with
+    t_service / t_sequential, exp9's service_vs_sequential) and the
+    service's kernel launches."""
+    from repro_torch.core import Engine, ReplicaService
+    from repro_torch.kernels import build as kbuild
+    svc = ReplicaService(cfg, slots, device=dev)
+    rids = [svc.submit(seed=s, steps=n) for s, n in jobs]
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = svc.drain()
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    launches = kbuild.launches()
+    t0 = time.perf_counter()
+    solo = [Engine(dataclasses.replace(cfg, timesteps=n), device=dev).run(
+        seed=s)[2] for s, n in jobs]
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    bad = [(rid, k, res[rid][k], c[k]) for rid, c in zip(rids, solo)
+           for k in REQUEST_COUNTERS if res[rid][k] != c[k]]
+    row = {"run": what, "slots": slots, "requests": len(jobs),
+           "steps": [n for _, n in jobs],
+           "repartition_every": cfg.repartition_every,
+           "t_service_s": t_service, "t_sequential_s": t_seq,
+           "service_vs_sequential": t_service / t_seq,
+           "migrations": [res[r]["migrations"] for r in rids],
+           "repartitions": [res[r]["repartitions"] for r in rids],
+           "grid_overflow": sum(res[r]["grid_overflow"] for r in rids),
+           "launches": launches, "counters_equal_solo": not bad}
+    if bad or row["grid_overflow"]:
+        raise AssertionError(f"{what}: requests differ from their solo "
+                             f"runs {bad[:4]}, grid_overflow "
+                             f"{row['grid_overflow']}")
+    return row, launches
+
+
+def service(zero_steps: int, iters: int, n_requests: int, smi: str, dev):
+    """The resident service at full width: the default EngineConfig()
+    with 10k slots and open_world=True.
+
+    - zero churn, `zero_steps` steps: bit-equal to the closed-world solo
+      run of the same seed (series and final state), one cell-list
+      launch a step;
+    - exp9's churn loop (benchmarks/exp9_service.py:68-110): n_active
+      9,800, then `iters` iterations of depart 200 random live ids,
+      arrive 200 uniform positions, step 1: events/s, step p50 / p99
+      (host clock around `Engine.step(1)`, which ends in a read of the
+      counters), migrations; population stays 9,800, grid_overflow 0,
+      one cell-list launch a step;
+    - the queries: `query_lcr` (one more launch), `query_region` on a
+      quadrant and on a box across the seam, `query_neighbors` of 64
+      live ids, each against a brute-force recompute on the card;
+    - `ReplicaService`: SERVICE_SLOTS slots, `n_requests` requests
+      (seeds 0, 1, ...) of unequal lengths from 60 to 300 steps; then
+      3 slots and 5 requests of exp7's hotspot with kmeans every 50
+      steps (slots reach their repartitions at different global
+      steps). Every request's integer counters equal its solo run's.
+
+    Launch counts are set to 0 just before each run and read just
+    after; their sum is returned."""
+    import numpy as np
+
+    from repro_torch.core import Engine, EngineConfig, neighbors
+    from repro_torch.core.stats import percentile
+    from repro_torch.kernels import build as kbuild
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    # zero churn: every slot live
+    cfg = EngineConfig(timesteps=zero_steps, open_world=True)
+    kbuild.reset_launches()
+    ost, oser, oc, osec = run_engine(cfg, dev)
+    got = kbuild.launches()
+    count(got)
+    cst, cser, _, csec = run_engine(
+        dataclasses.replace(cfg, open_world=False), dev)
+    bad = [k for k in cser if not torch.equal(oser[k], cser[k])] + \
+        [k for k in cst if k != "t" and not torch.equal(ost[k], cst[k])]
+    emit(phase="service", run="zero churn", card=smi, steps=zero_steps,
+         s_per_step=osec / zero_steps, closed_s_per_step=csec / zero_steps,
+         mean_pop=oc["mean_pop"], launches=got, mismatch=bad)
+    if bad or got["proximity_grid"] != zero_steps or \
+            oc["mean_pop"] != cfg.abm.n_se:
+        raise AssertionError(f"zero churn: differs from the closed world "
+                             f"in {bad}, launches {got}")
+    del ost, oser, cst, cser
+
+    # exp9's churn loop
+    n = cfg.abm.n_se
+    cfg = EngineConfig(open_world=True, n_active=n - CHURN_BATCH)
+    area = cfg.abm.area
+    g = np.random.default_rng(0)
+    eng = Engine(cfg, device=dev).init(seed=0)
+    eng.step(1)  # warm: one step, one arrival and departure batch
+    eng.depart(eng.arrive({"pos": g.uniform(0, area, (CHURN_BATCH, 2))}))
+    kbuild.reset_launches()
+    step_s, migrations, overflow = [], 0.0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng.depart(g.choice(eng.live_ids(), CHURN_BATCH, replace=False))
+        eng.arrive({"pos": g.uniform(0, area, (CHURN_BATCH, 2))})
+        ts = time.perf_counter()
+        c = eng.step(1)
+        step_s.append(time.perf_counter() - ts)
+        migrations += c["migrations"]
+        overflow += c["grid_overflow"]
+    wall = time.perf_counter() - t0
+    got = kbuild.launches()
+    count(got)
+    pop = eng.population()
+    live_dev = int((eng.state["lp"] >= 0).sum())
+    emit(phase="service", run="churn", card=smi, n_se=n, batch=CHURN_BATCH,
+         iters=iters, events=2 * CHURN_BATCH * iters, wall_s=wall,
+         events_per_s=2 * CHURN_BATCH * iters / wall,
+         step_p50_ms=1e3 * percentile(step_s, 50.0),
+         step_p99_ms=1e3 * percentile(step_s, 99.0),
+         migrations=migrations, population=pop, live_rows_on_card=live_dev,
+         grid_overflow=overflow, launches=got)
+    if pop != n - CHURN_BATCH or live_dev != pop or overflow or \
+            got["proximity_grid"] != iters:
+        raise AssertionError(f"churn: population {pop} ({live_dev} live on "
+                             f"the card), grid_overflow {overflow}, "
+                             f"launches {got}")
+
+    # the queries, each against a brute-force recompute on the card
+    abm = cfg.abm
+    pos, lp = eng.state["pos"], eng.state["lp"]
+    valid = lp >= 0
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    lcr = eng.query_lcr()
+    lcr_s = time.perf_counter() - t0
+    got = kbuild.launches()
+    count(got)
+    L = abm.n_lp
+    counts = neighbors.dense_lp_counts(pos, lp, valid, L, area,
+                                       abm.interaction_range)
+    flows = torch.zeros((L, L), dtype=torch.int64, device=dev)
+    flows.index_add_(0, lp.clamp(0, L - 1).long(), counts.long())
+    local, tot = int(flows.trace()), int(flows.sum())
+    want_lcr = float(np.float32(local) / np.float32(max(tot, 1)))
+    p, v = pos.cpu().numpy(), valid.cpu().numpy()
+    boxes = {"quadrant": (0.0, 0.0, area / 2, area / 2),
+             "seam": (area - 700.0, area - 700.0, 700.0, 700.0)}
+    regions = {}
+    for name, (x0, y0, x1, y1) in boxes.items():
+        t0 = time.perf_counter()
+        hit = eng.query_region((x0, y0, x1, y1))
+        sec = time.perf_counter() - t0
+        x, y = p[:, 0], p[:, 1]
+        inx = (x >= x0) & (x <= x1) if x0 <= x1 else (x >= x0) | (x <= x1)
+        iny = (y >= y0) & (y <= y1) if y0 <= y1 else (y >= y0) | (y <= y1)
+        want = np.nonzero(v & inx & iny)[0].tolist()
+        regions[name] = {"hits": len(hit), "s": sec, "equal": hit == want}
+    q = eng.live_ids()[::max(1, pop // 64)][:64]
+    t0 = time.perf_counter()
+    nbr = eng.query_neighbors(q)
+    nbr_s = time.perf_counter() - t0
+    qi = torch.tensor(q, device=dev)
+    rng2 = float(np.float32(abm.interaction_range * abm.interaction_range))
+    d2 = neighbors.toroidal_d2(pos[qi][:, None, :], pos[None, :, :], area,
+                               fused=False)
+    ok = valid[None, :] & (d2 <= rng2)
+    ok[torch.arange(len(q), device=dev), qi] = False
+    want_nbr = {i: torch.nonzero(row)[:, 0].tolist()
+                for i, row in zip(q, ok.cpu())}
+    emit(phase="service", run="queries", card=smi, query_lcr=lcr,
+         query_lcr_s=lcr_s, query_lcr_equal=lcr == want_lcr,
+         launches=got, regions=regions, neighbors_ids=len(q),
+         neighbors_found=sum(len(x) for x in nbr.values()),
+         query_neighbors_s=nbr_s, query_neighbors_equal=nbr == want_nbr)
+    if lcr != want_lcr or got["proximity_grid"] != 1 or nbr != want_nbr \
+            or not all(r["equal"] for r in regions.values()):
+        raise AssertionError(f"queries: lcr {lcr} against {want_lcr}, "
+                             f"launches {got}, regions {regions}, "
+                             f"neighbours equal {nbr == want_nbr}")
+    del eng, pos, lp, counts, d2, ok
+
+    # ReplicaService: continuous batching of unequal requests
+    jobs = list(enumerate(request_lengths(n_requests)))
+    row, got = replica_service(EngineConfig(), jobs, SERVICE_SLOTS, dev,
+                               "replica_service")
+    count(got)
+    emit(phase="service", card=smi, **row)
+    cfg = exp6_cfg("hotspot", 0, partitioner="kmeans", repartition_every=50)
+    jobs = list(zip(range(5), (130, 70, 160, 90, 110)))
+    row, got = replica_service(cfg, jobs, 3, dev,
+                               "replica_service hotspot+kmeans/50")
+    count(got)
+    emit(phase="service", card=smi, **row)
+    if not all(row["repartitions"]):
+        raise AssertionError("hotspot+kmeans/50: a request saw no "
+                             "repartition")
+    # 9 scans a partition: each request's init and its own boundaries
+    # (idle slots, queue exhausted, do not repartition)
+    want_ca = 9 * sum(1 + (n - 1) // cfg.repartition_every for _, n in jobs)
+    if got["capacity_assign"] != want_ca:
+        raise AssertionError(f"hotspot+kmeans/50: {got['capacity_assign']} "
+                             f"capacity-assign launches, want {want_ca}")
+    return total
+
+
 def profile(steps: int, dev, scenario: str = "", n_rep: int = 1):
     """Where a step of the default config (or of an exp6 scenario at
     full width) spends its time; with `n_rep` > 1, a step of a batch of
@@ -1465,7 +1828,9 @@ def main():
     p.add_argument("--steps", type=int, default=1200)
     p.add_argument("--dense-steps", type=int, default=200)
     p.add_argument("--scale-steps", type=int, default=20)
-    p.add_argument("--cpu-steps", type=int, default=100)
+    p.add_argument("--cpu-steps", type=int, default=100,
+                   help="steps of the cpu phase's runs, its churn script "
+                        "included")
     p.add_argument("--epi-steps", type=int, default=1200,
                    help="steps of the scenarios phase's epidemic run")
     p.add_argument("--scenario-steps", type=int, default=300,
@@ -1474,6 +1839,10 @@ def main():
                    help="steps of the replicas phase's epidemic and flock")
     p.add_argument("--tune-steps", type=int, default=600,
                    help="steps of the replicas phase's batched tuner")
+    p.add_argument("--service-iters", type=int, default=120,
+                   help="iterations of the service phase's churn loop")
+    p.add_argument("--service-requests", type=int, default=12,
+                   help="requests of the service phase's ReplicaService")
     p.add_argument("--gen", type=int, default=64,
                    help="decode steps of the serve phase")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -1517,13 +1886,19 @@ def main():
                        check_grid(10_000, 10_000.0, 250.0, 7, dev,
                                   layout="hotspot"),
                        check_grid(10_000, 10_000.0, 250.0, 20, dev,
-                                  replicas=10)],
+                                  replicas=10),
+                       check_grid(10_000, 10_000.0, 250.0, 50, dev,
+                                  dead=2_000),
+                       check_grid(10_000, 10_000.0, 250.0, 51, dev,
+                                  replicas=4, dead=2_000)],
               "dense": [check_dense(2_000, 600.0, 250.0, 3, dev),
                         check_dense(10_000, 10_000.0, 250.0, 4, dev),
                         check_dense(10_000, 10_000.0, 250.0, 8, dev,
                                     all_senders=True),
                         check_dense(2_000, 600.0, 250.0, 30, dev,
-                                    replicas=4)],
+                                    replicas=4),
+                        check_dense(2_000, 600.0, 250.0, 52, dev,
+                                    dead=500)],
               "cell_sums": [check_cell_sums(10_000, 10_000.0, 9, dev),
                             check_cell_sums(10_000, 10_000.0, 10, dev,
                                             mobility="hotspot"),
@@ -1545,6 +1920,8 @@ def main():
                               a.scenario_steps, dev)
     for stem in ("cell_sums", "capacity_assign"):
         launches[stem] = scenario_launches[stem]
+    service_launches = timed("service", service, min(300, a.steps),
+                             a.service_iters, a.service_requests, smi, dev)
     timed("scale", scale, a.scale_steps, dev)
     timed("cpu", card_vs_cpu, a.cpu_steps, dev)
     timed("serve_cpu", serve_cpu_phase, dev)
@@ -1586,6 +1963,7 @@ def main():
             "replaces": replaces, "launches": launches[stem],
             "scenario_launches": scenario_launches.get(stem, 0),
             "replicas_launches": replica_launches.get(stem, 0),
+            "service_launches": service_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

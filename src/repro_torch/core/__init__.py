@@ -1,6 +1,6 @@
-"""GAIA self-clustering core, ported to PyTorch: closed-world replicas
-(one, or a batch of R) of the evaluation model, every mobility model
-and workload.
+"""GAIA self-clustering core, ported to PyTorch: the evaluation model
+with every mobility model and workload, one replica or a batch of R,
+closed or open world, behind the resident service.
 
 - abm: the evaluation model, §5.1 (mobility models, the epidemic
   workload, proximity counts)
@@ -9,8 +9,9 @@ and workload.
 - balance: symmetric/asymmetric load balancing, §4.4
 - partition: the SE -> LP partitioners (initial and periodic)
 - engine: the timestepped adaptive-partitioning engine, §4
-- service: the `Engine` facade (init / step / run / metrics), one
-  replica or a batch
+- service: the resident `Engine` facade (init / step / run / metrics,
+  open-world churn, device-state queries), one replica or a batch, and
+  `ReplicaService` (continuous batching of requests over the replicas)
 - selftune: the §5.5 MF tuners (intra-run, batched, inter-run)
 - costmodel, stats: host-only copies of the reference's modules
 """

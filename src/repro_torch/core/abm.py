@@ -25,6 +25,11 @@ where a fused or correctly rounded float32 result is needed:
 The reference runs its init eagerly, op by op, so nothing there is
 fused: the init's arithmetic is plain float32, one rounding an op.
 
+Open worlds. The step's functions take `valid`, the live rows of an
+open world's slot universe (`EngineConfig(open_world=True)`): the grid
+bins dead rows out of every cell (`neighbors.build_grid(valid=)`), the
+flock leaves them out of its means, and the engine holds their state.
+
 Replicas. Every function of the step takes positions and per-SE state
 with a leading replica axis, (R, N, ...), as well as without one, and
 keys as an (R, 2) batch or one key (`repro_torch.random`): the per-row
@@ -436,22 +441,32 @@ def mobility_row_apply(pos, waypoint, mob, draws, cfg: ABMConfig):
     return _group_apply(pos, target, draws["noise"], cfg), waypoint
 
 
-def _flock_step(k_noise, pos, mob, cfg: ABMConfig):
+def _flock_step(k_noise, pos, mob, cfg: ABMConfig, valid=None):
     """Flocking-lite over the cell-list grid: steer by inertia +
     alignment with the 3x3-neighborhood mean heading + cohesion toward
     its centroid + noise; move at constant `speed` along the heading.
     Compiled, the steer is fma(noise, 0.8, fma(cohere, 0.6, fma(align,
     0.8, mob))) with the noise's 2 * 0.4 folded into 0.8. Degenerate
     worlds (no grid) flock against the global mean, whose float32 sums
-    add in another order than XLA's reduction."""
+    add in another order than XLA's reduction. `valid` (open world)
+    keeps dead rows out of the means; their own rows are garbage the
+    engine discards."""
     n = pos.shape[-2]
     spec = cfg.grid_spec()
     if spec is not None:
-        cdelta, hmean = neighbors.cell_block_mean(pos, mob, spec, cfg.area)
-    else:  # un-tessellatable world: one global "cell" (non-toroidal mean)
+        cdelta, hmean = neighbors.cell_block_mean(pos, mob, spec, cfg.area,
+                                                  valid=valid)
+    elif valid is None:  # un-tessellatable: one global "cell" (no torus)
         inv = f32(1.0 / f32(max(n - 1, 1)))
         cdelta = (_world_sum(pos) - pos) * inv - pos
         hmean = (_world_sum(mob) - mob) * inv
+    else:  # the live rows' mean, over a count the step computes
+        vpos = torch.where(valid[..., None], pos, 0.0)
+        vmob = torch.where(valid[..., None], mob, 0.0)
+        cnt = (valid.sum(-1, dtype=torch.int32) - 1).clamp(min=1).float()
+        cnt = cnt[..., None, None] if pos.dim() > 2 else cnt
+        cdelta = div32(_world_sum(vpos) - vpos, cnt) - pos
+        hmean = div32(_world_sum(vmob) - vmob, cnt)
     cnorm = _norm(cdelta)
     reach = torch.clamp(cnorm * f32(1.0 / f32(cfg.interaction_range)),
                         max=1.0)
@@ -473,39 +488,48 @@ def _world_sum(x):
     return torch.stack([w.sum(0) for w in x])[:, None, :]
 
 
-def mobility_step(key, pos, waypoint, mob, mob_g, cfg: ABMConfig):
+def mobility_step(key, pos, waypoint, mob, mob_g, cfg: ABMConfig,
+                  valid=None):
     """One mobility timestep for all N SEs, in global-SE-id order.
-    Returns (pos, waypoint, mob, mob_g)."""
+    Returns (pos, waypoint, mob, mob_g). `valid` (open world) keeps
+    dead rows out of the flock's means; the row-local models ignore it
+    (the engine discards dead rows' moves)."""
     if row_local_mobility(cfg):
         draws, mob_g = mobility_row_draws(key, pos.shape[-2], mob_g, cfg,
                                           pos.device)
         pos, waypoint = mobility_row_apply(pos, waypoint, mob, draws, cfg)
         return pos, waypoint, mob, mob_g
-    pos, mob = _flock_step(trandom.fold_in(key, 2), pos, mob, cfg)
+    pos, mob = _flock_step(trandom.fold_in(key, 2), pos, mob, cfg,
+                           valid=valid)
     return pos, waypoint, mob, mob_g
 
 
-def proximity_grid(pos, cfg: ABMConfig):
+def proximity_grid(pos, cfg: ABMConfig, valid=None):
     """The CSR grid the proximity phase sweeps, or None when the backend
     or the world takes the dense path. The epidemic's exposure sweep
-    reuses it: same positions, same geometry."""
+    reuses it: same positions, same geometry. `valid` (open world) bins
+    dead rows out of every cell."""
     if cfg.proximity_backend not in ("grid", "pallas_grid"):
         return None
     spec = cfg.grid_spec()
-    return None if spec is None else neighbors.build_grid(pos, spec)
+    return None if spec is None else neighbors.build_grid(pos, spec,
+                                                          valid=valid)
 
 
 def interaction_counts_overflow(pos, lp, sender_mask, cfg: ABMConfig,
-                                grid=None):
+                                grid=None, valid=None):
     """Per-sender histogram of recipient LPs, plus the grid's overflow
     alarm: counts (N, n_lp) int32 with counts[i, l] = number of SEs
     within `interaction_range` of sender i on LP l (self excluded,
     non-sender rows zero), and overflow () bool — True iff a grid cell
     exceeded its capacity (dense backends are always exact). Worlds with
     `area / range < 3` take the dense path on every backend. `grid` is
-    `proximity_grid(pos, cfg)` when the caller built it already."""
+    `proximity_grid(pos, cfg, valid)` when the caller built it already.
+    Open world: dead rows (`valid` False, lp -1) are no sender's
+    recipient and stay out of the grid; the caller keeps them out of
+    `sender_mask`."""
     if grid is None:
-        grid = proximity_grid(pos, cfg)
+        grid = proximity_grid(pos, cfg, valid=valid)
     if grid is not None:
         counts = prox.proximity_lp_counts_grid(
             pos, lp, sender_mask, cfg.n_lp, cfg.area, cfg.interaction_range,
@@ -589,15 +613,17 @@ def epidemic_row_update(epi, exposure, draws, cfg: ABMConfig, table):
 
 
 def epidemic_exposure_overflow(pos, labels, query_mask, cfg: ABMConfig,
-                               grid=None):
+                               grid=None, valid=None):
     """exposure[i] = #{j != i in range with labels[j] == 1} for rows
     with `query_mask` (zeros elsewhere), plus the grid overflow alarm:
     the proximity kernels with the labels as a 2-class LP map. On the
     grid backend `grid` is the proximity phase's CSR grid of the same
-    positions, when the caller has it."""
+    positions, when the caller has it. Open world: dead rows carry
+    label -1 (no class) and `valid` keeps them out of the grid."""
     spec = cfg.grid_spec() if cfg.proximity_backend == "grid" else None
     if spec is not None:
-        grid = neighbors.build_grid(pos, spec) if grid is None else grid
+        if grid is None:
+            grid = neighbors.build_grid(pos, spec, valid=valid)
         counts = prox.proximity_lp_counts_grid(
             pos, labels, query_mask, 2, cfg.area, cfg.interaction_range,
             spec, grid, neighbors.chunk_entries(cfg.mem_budget_mb))

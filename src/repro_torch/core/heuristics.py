@@ -13,7 +13,9 @@ passed since its last migration. They differ in the window:
 Pure functions: the window ring is updated out of place, as in the
 reference. Each takes a leading replica axis too: the ring (R, w, N, L)
 and per-SE inputs (R, N, ...), with a per-replica MF; replica r gets
-what a solo call on its slice gets.
+what a solo call on its slice gets. The step `t` is a Python int (one
+replica, or a batch in lockstep) or, for a batch whose replicas are at
+their own steps, an (R, 1) int32 tensor on the device.
 """
 from __future__ import annotations
 
@@ -57,14 +59,19 @@ def init_state(cfg: HeuristicConfig, n_se: int, n_lp: int, device):
     }
 
 
-def update_window(cfg: HeuristicConfig, state, counts, sender_mask, t: int):
+def update_window(cfg: HeuristicConfig, state, counts, sender_mask, t):
     """Push this timestep's per-SE destination histogram into the window."""
     ring = state["ring"].clone()
     zero = torch.zeros_like(counts)
     if cfg.kind == 1:
-        # timestep window: every SE's slot advances each step
-        ring[..., t % cfg.kappa, :, :] = torch.where(sender_mask[..., None],
-                                                     counts, zero)
+        # timestep window: every SE's slot advances each step (replica
+        # r's slot t[r] % kappa when the replicas keep their own steps)
+        new = torch.where(sender_mask[..., None], counts, zero)
+        if isinstance(t, torch.Tensor):
+            ring[torch.arange(ring.shape[0], device=ring.device),
+                 (t[:, 0] % cfg.kappa).long()] = new
+        else:
+            ring[..., t % cfg.kappa, :, :] = new
         return dict(state, ring=ring)
     # event window: only senders advance their own pointer; row ptr * N
     # + i of each replica's (w * N, L) block of the flat ring
@@ -85,7 +92,7 @@ def update_window(cfg: HeuristicConfig, state, counts, sender_mask, t: int):
     return dict(state, ring=ring, ptr=new_ptr, since_eval=since)
 
 
-def evaluate(cfg: HeuristicConfig, state, lp, t: int, valid=None, mf=None):
+def evaluate(cfg: HeuristicConfig, state, lp, t, valid=None, mf=None):
     """Returns (candidate (N,), dest_lp (N,), alpha (N,), new_state,
     n_evals) — with a replica axis (R, N) each and n_evals (R,). `mf`
     overrides cfg.mf (taken as float32); a batch may give an (R,)

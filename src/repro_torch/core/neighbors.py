@@ -1,10 +1,11 @@
 """Spatial-grid (cell-list) neighbor search on the toroidal square.
 
-The port of `repro.core.neighbors`, without the open-world and sharded
-helpers: the grid geometry and capacity math (uniform and clustered),
-the binning, the CSR grid build, the plain PyTorch sweeps that count,
-for each sender, the recipients on each LP within range, and the
-flock's 3x3 block means. On the card the engine does not run these
+The port of `repro.core.neighbors`, without the sharded helpers: the
+grid geometry and capacity math (uniform and clustered), the binning,
+the CSR grid build (with the open world's dead rows binned out of it),
+the plain PyTorch sweeps that count, for each sender, the recipients on
+each LP within range, the service's neighbour query, and the flock's
+3x3 block means. On the card the engine does not run these
 sweeps: it hands the grid to the hand-written kernels in
 `repro_torch.kernels.proximity` (whose plain versions delegate here)
 and `repro_torch.kernels.cell_sums`.
@@ -25,6 +26,11 @@ r * ncell^2 and its rows by r * N, so one stable sort orders every
 replica's SEs and replica r's segments are those of its solo grid
 (same members, same order). The sweeps and the block means read each
 replica's cells only; the overflow flag is one a replica.
+
+Dead rows. An open world (`build_grid(valid=)`) bins its dead rows to
+one virtual cell, R * ncell^2, that sorts after every real cell of
+every replica: they occupy no segment, are nobody's candidate, never
+trip `overflow`, and their count rows are zeros.
 """
 from __future__ import annotations
 
@@ -62,13 +68,15 @@ def budget_capacity(ncell: int, mem_budget_mb: int) -> int:
     return max(1, (mem_budget_mb << 19) // (4 * ncell * ncell))
 
 
-def toroidal_d2(a, b, area: float):
+def toroidal_d2(a, b, area: float, fused: bool = True):
     """Squared toroidal distance between (..., 2) float32 positions:
-    `fma(dx, dx, dy*dy)` rounded once, as the compiled reference."""
+    `fma(dx, dx, dy*dy)` rounded once, as the compiled reference; with
+    `fused=False`, dx*dx + dy*dy rounded op by op, as the reference
+    computes it eagerly (the service's queries)."""
     d = (a - b).abs()
     d = torch.minimum(d, f32(area) - d)
     dx, dy = d[..., 0], d[..., 1]
-    return fma32(dx, dx, dy * dy)
+    return fma32(dx, dx, dy * dy) if fused else dx * dx + dy * dy
 
 
 def dense_lp_counts(pos, lp, sender_mask, n_lp: int, area: float,
@@ -157,9 +165,10 @@ def replica_offsets(n_rep: int, stride: int, device, dtype=torch.int64):
                         device=device)[:, None]
 
 
-def build_grid(pos, spec: GridSpec):
+def build_grid(pos, spec: GridSpec, valid=None):
     """Bin positions ((N, 2), or (R, N, 2): R worlds) into the CSR
-    grid.
+    grid; `valid` ((N,) or (R, N) bool, the open world's live rows)
+    bins the other rows to the virtual cell R * ncell^2.
 
     Keys, over all R * N rows and R * ncell^2 cells (replica r's cells
     offset by r * ncell^2, its rows by r * N): cell (R*N,) int32 cell id
@@ -168,7 +177,9 @@ def build_grid(pos, spec: GridSpec):
     starts/counts (R*ncell^2,) int64 segment offsets and sizes; overflow
     () or (R,) bool — True iff some cell of the replica holds more than
     `capacity` SEs (members past it are dropped from the segment window,
-    so exactness requires overflow == False)."""
+    so exactness requires overflow == False). Counts, starts and
+    overflow span the real cells only; a dead row's `cell` is the
+    virtual id (index no cell-shaped array with it)."""
     ncells = spec.ncell * spec.ncell
     lead = pos.shape[:-2]
     n_rep = math.prod(lead)
@@ -176,6 +187,8 @@ def build_grid(pos, spec: GridSpec):
     if n_rep > 1:
         cell = cell + replica_offsets(n_rep, ncells, pos.device,
                                       torch.int32)
+    if valid is not None:
+        cell = torch.where(valid, cell, n_rep * ncells)
     cell = cell.reshape(-1)
     cell_sorted, order = torch.sort(cell, stable=True)
     cids = torch.arange(n_rep * ncells, dtype=cell.dtype, device=pos.device)
@@ -239,17 +252,50 @@ def grid_lp_counts_from(pos, lp, sender_mask, n_lp: int, area: float,
     """LP histogram over a prebuilt grid, in id order: the CSR sweep
     with every agent as a row, visited in sorted cell order (locality
     for the segment reads), scattered back by the sort permutation.
-    Takes a leading replica axis as `build_grid` does."""
+    Takes a leading replica axis as `build_grid` does. Rows the grid
+    holds in its virtual cell (dead rows) count nothing, sender or
+    not, as the cell-list kernel writes them."""
     lead, n = pos.shape[:-2], pos.shape[-2]
     pos, lp = pos.reshape(-1, 2), lp.reshape(-1)
-    sender_mask = sender_mask.reshape(-1)
     order = grid["order"]
+    live = grid["cell_sorted"] < grid["starts"].shape[0]
     out = rows_grid_counts(pos, lp, n_lp, area, rng, spec, grid,
-                           pos[order], order, sender_mask[order],
+                           pos[order], order,
+                           sender_mask.reshape(-1)[order] & live,
                            budget_entries, n_per_rep=n if lead else 0)
     counts = torch.empty_like(out)
     counts[order] = out
     return counts.view(lead + (n, n_lp))
+
+
+def rows_grid_neighbor_ids(pos, area: float, rng: float, spec: GridSpec,
+                           grid, q_pos, q_row):
+    """Indices (into `pos`, one world's (N, 2)) of every agent within
+    `rng` of each query point, via the CSR cell list: (Q, 9 * capacity)
+    int64, padded with -1. `q_row` is each query's own row (or -1),
+    left out of its result. Dead rows are in no segment, so never
+    appear; windows are cut at `capacity` as in the counting sweep.
+    Q is a request batch, so no chunking. The pair test is the
+    reference's eager one (its service calls this outside a compiled
+    program)."""
+    n, nc, cap = pos.shape[0], spec.ncell, spec.capacity
+    order, starts = grid["order"], grid["starts"]
+    seg_cnt = grid["counts"].clamp(max=cap)
+    rng2 = f32(rng * rng)
+    rc = cell_ids(q_pos, spec)
+    cx, cy = rc // nc, rc % nc
+    karange = torch.arange(cap, device=pos.device)
+    cols = []
+    for di, dj in NEIGH_OFFSETS:
+        ncid = ((cx + di) % nc) * nc + (cy + dj) % nc
+        idx = starts[ncid][:, None] + karange[None, :]
+        ok = karange[None, :] < seg_cnt[ncid][:, None]
+        j = order[idx.clamp(0, n - 1)]
+        ok &= j != q_row[:, None]
+        ok &= toroidal_d2(q_pos[:, None, :], pos[j], area,
+                          fused=False) <= rng2
+        cols.append(torch.where(ok, j, -1))
+    return torch.cat(cols, dim=1)
 
 
 def grid_lp_counts(pos, lp, sender_mask, n_lp: int, area: float, rng: float,
@@ -259,7 +305,7 @@ def grid_lp_counts(pos, lp, sender_mask, n_lp: int, area: float, rng: float,
                                build_grid(pos, spec), budget_entries)
 
 
-def cell_block_mean(pos, vec, spec: GridSpec, area: float):
+def cell_block_mean(pos, vec, spec: GridSpec, area: float, valid=None):
     """Per-SE mean of positions and of `vec` over the 3x3 cell block:
     (cdelta, vmean), where cdelta (N, 2) is the displacement from each
     SE to the centroid of the *other* SEs of its block (zero when alone)
@@ -272,10 +318,12 @@ def cell_block_mean(pos, vec, spec: GridSpec, area: float):
     position sums by -+area, `fma(count, -+area, sum)` rounded once as
     XLA fuses it, and the nine rolled grids are added in the 3x3
     offsets' order. With a leading replica axis every replica's cells
-    are summed in the one launch and rolled within their own grid."""
+    are summed in the one launch and rolled within their own grid.
+    `valid` (the open world's live rows) leaves dead rows out of every
+    sum; their own output rows are garbage the caller masks."""
     nc = spec.ncell
     lead, n = pos.shape[:-2], pos.shape[-2]
-    grid = build_grid(pos, spec)
+    grid = build_grid(pos, spec, valid=valid)
     cnt, sx, sy, vx, vy = cell_sums_ops.cell_sums(pos, vec, grid).view(
         (5,) + lead + (nc, nc)).unbind(0)
     dims = (-2, -1)
@@ -299,7 +347,7 @@ def cell_block_mean(pos, vec, spec: GridSpec, area: float):
                  torch.roll(vy, (di, dj), dims))
         acc = list(parts) if acc is None else \
             [a + p for a, p in zip(acc, parts)]
-    cell = grid["cell"].long()
+    cell = grid["cell"].long().clamp(max=grid["starts"].shape[0] - 1)
     flat = [a.reshape(-1)[cell].view(lead + (n,)) for a in acc]
     others = torch.clamp(flat[0] - 1.0, min=1.0)[..., None]
     alone = ((flat[0] - 1.0) <= 0.0)[..., None]

@@ -51,6 +51,13 @@
 //   * every row is written exactly once, by the warp that holds it
 //     (non-senders get zeros), so the output needs no memset; the head
 //     and the tail of a cell are disjoint and cover it;
+//   * an open world's dead rows sit in no cell: the grid bins them to a
+//     virtual cell R * ncell^2 that sorts after every real one, so they
+//     form the sorted order's tail. The row block that holds a dead row
+//     writes its zeros (it is nobody's candidate and never a sender) and
+//     takes it for no crowded cell's tail, however long the dead tail
+//     is; the row blocks read `cell_sorted` anyway, so this costs no
+//     load and the call stays one launch with no host read;
 //   * R replicas (independent worlds of the same geometry) are one
 //     launch: the CSR grid spans R * ncell^2 cells, replica r's at
 //     r * ncell^2, and `order` holds row ids across replicas (r * N + i),
@@ -139,6 +146,17 @@ __device__ __forceinline__ int2 read_windows(const Grid& G, Windows& win,
                    __shfl_sync(FULL, cell_count, 4));
 }
 
+// Row `id` of the output, all zeros.
+__device__ __forceinline__ void zero_row(const Grid& G, int id) {
+  int32_t* o = G.out + static_cast<int64_t>(id) * G.n_lp;
+  if ((G.n_lp & 3) == 0) {
+    for (int l = 0; l < G.n_lp; l += 4)
+      *reinterpret_cast<int4*>(o + l) = make_int4(0, 0, 0, 0);
+  } else {
+    for (int l = 0; l < G.n_lp; ++l) o[l] = 0;
+  }
+}
+
 // One warp, up to 32 rows of one cell (lane: sorted row `row` when `has`)
 // against the cell's candidates `win`: the counts of its senders, zeros
 // for its other rows. `partial` holds a batch's counts while the
@@ -189,15 +207,7 @@ __device__ __forceinline__ void sweep(const Grid& G, const Windows& win,
   int staged = 0;
   const bool snd = has && G.sender[id];
   const float2 p = G.pos[id];
-  if (has && !snd) {  // rows that do not send: zeros
-    int32_t* o = G.out + static_cast<int64_t>(id) * n_lp;
-    if ((n_lp & 3) == 0) {
-      for (int l = 0; l < n_lp; l += 4)
-        *reinterpret_cast<int4*>(o + l) = make_int4(0, 0, 0, 0);
-    } else {
-      for (int l = 0; l < n_lp; ++l) o[l] = 0;
-    }
-  }
+  if (has && !snd) zero_row(G, id);  // rows that do not send
 
   // the senders, BATCH at a time; one chunk of candidates (the common
   // case) writes its counts at once, more keep them in `partial` until
@@ -301,19 +311,25 @@ __global__ void __launch_bounds__(THREADS, LB <= 4 ? 5 : 4)
   __shared__ int partial[WARPS][BATCH][W];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
+  const int cells = G.ncell * G.ncell;
   if (blockIdx.y < row_y) {
-    // row block: a warp's 32 consecutive sorted rows, of which it takes
-    // those at least HEAD rows into their cell (the row HEAD before is
-    // in the same cell); they are one cell's, as HEAD >= 32
+    // row block: a warp's 32 consecutive sorted rows. A dead row (in
+    // the virtual cell past the R replicas' real ones) gets its zeros;
+    // of the others the warp takes those at least HEAD rows into their
+    // cell (the row HEAD before is in the same cell); they are one
+    // cell's, as HEAD >= 32
     const int row =
         ((blockIdx.y * gridDim.x + blockIdx.x) * WARPS + warp) * 32 + lane;
     const int cell = row < n ? cell_sorted[row] : -1;
-    const bool tail =
-        row < n && row >= HEAD && cell == cell_sorted[row - HEAD];
+    // the R replicas' grid rows (R * ncell) times ncell: R * ncell^2
+    const int n_cells = (static_cast<int>(gridDim.y) - row_y) * G.ncell;
+    const bool dead = row < n && cell >= n_cells;
+    if (dead) zero_row(G, static_cast<int>(G.order[row]));
+    const bool tail = row < n && !dead && row >= HEAD &&
+                      cell == cell_sorted[row - HEAD];
     const unsigned mine = __ballot_sync(FULL, tail);
     if (!mine) return;
     const int c = __shfl_sync(FULL, cell, __ffs(mine) - 1);
-    const int cells = G.ncell * G.ncell;
     const int base = c / cells * cells, local = c - base;
     read_windows(G, win[warp], base, local / G.ncell, local % G.ncell, true,
                  lane);
@@ -327,8 +343,8 @@ __global__ void __launch_bounds__(THREADS, LB <= 4 ? 5 : 4)
     const int gy = blockIdx.y - row_y;  // r * ncell + cx
     const int r = gy / G.ncell, cx = gy - r * G.ncell;
     const int cy = blockIdx.x * WARPS + warp;
-    const int2 centre = read_windows(G, win[warp], r * G.ncell * G.ncell, cx,
-                                     cy, cy < G.ncell, lane);
+    const int2 centre =
+        read_windows(G, win[warp], r * cells, cx, cy, cy < G.ncell, lane);
     if (lane == 0) {
       row_start[warp] = centre.x;
       rows[warp] = min(centre.y, HEAD);

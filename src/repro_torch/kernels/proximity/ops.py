@@ -17,6 +17,11 @@ Both take R replicas at once: inputs with a leading replica axis,
 grid is `neighbors.build_grid` of the (R, N, 2) positions (its `order`
 holds row ids across replicas, r * N + i, and its CSR spans R * ncell^2
 cells); the dense kernel sweeps each replica's pairs only.
+
+Open worlds. A grid built with `valid=` holds its dead rows in a virtual
+cell past the real ones: the cell-list kernel writes their rows as
+zeros (sender or not) and nobody counts them. The dense kernel takes a
+dead row's LP of -1, which no column counts.
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ def proximity_lp_counts_grid(pos, lp, sender_mask, n_lp: int, area: float,
                              budget_entries: int = 0):
     """counts[i, l] = #{j != i in range of i : lp[j] == l} for senders i
     (zeros elsewhere), (..., N, n_lp) int32 in id order, over the CSR
-    grid `grid = neighbors.build_grid(pos, spec)`. Members past
+    grid `grid = neighbors.build_grid(pos, spec[, valid])`; rows the
+    grid holds in its virtual cell get zeros. Members past
     `spec.capacity` in a cell are not seen (`grid["overflow"]`).
     `budget_entries` sizes the plain version's chunks."""
     if pos.device.type == "cpu":

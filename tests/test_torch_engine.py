@@ -136,21 +136,15 @@ def test_rejects_what_the_reference_rejects(which, fields):
 
 
 LATER = [
-    lambda: T.Engine(T.EngineConfig(), device="cpu").init(
-        seeds=[0, 1]).depart([0]),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").depart([0]),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").query_neighbors([0]),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").population(),
     lambda: T.EngineConfig(sharding="lp_device"),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").query_region(None),
-    lambda: T.EngineConfig(open_world=True),
     lambda: T.EngineConfig(obs=TObs(enabled=True)),
     lambda: T.Engine(T.EngineConfig(), device="cpu").ledger(),
     lambda: T.Engine(T.EngineConfig(sharding="lp_device"),
                      device="cpu").run(seeds=[0, 1]),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").arrive({}),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").query_lcr(),
-    lambda: T.ReplicaService(T.EngineConfig(), 2),
+    lambda: T.EngineConfig(open_world=True, sharding="lp_device"),
+    lambda: T.Engine(T.EngineConfig(), device="cpu").events(),
+    lambda: T.Engine(T.EngineConfig(open_world=True),
+                     device="cpu").prometheus(),
 ]
 
 
@@ -158,6 +152,52 @@ LATER = [
 def test_later_slices_raise_naming_the_roadmap(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make()
+
+
+def _small(P, **eng):
+    return P.EngineConfig(abm=P.ABMConfig(n_se=64, area=1000.0,
+                                          interaction_range=60.0), **eng)
+
+
+#: the service's calls that the port ran as "later" before it had them,
+#: and its misuse cases: each does what the reference does (the same
+#: exception type, or the same value); P is the package, D the device
+SERVICE = [
+    lambda P, D: P.Engine(_small(P), **D).init(seeds=[0, 1]).depart([0]),
+    lambda P, D: P.Engine(_small(P), **D).depart([0]),
+    lambda P, D: P.Engine(_small(P), **D).query_neighbors([0]),
+    lambda P, D: P.Engine(_small(P), **D).population(),
+    lambda P, D: P.Engine(_small(P), **D).query_region(None),
+    lambda P, D: P.EngineConfig(open_world=True).initial_live(),
+    lambda P, D: P.Engine(_small(P), **D).arrive({}),
+    lambda P, D: P.Engine(_small(P), **D).query_lcr(),
+    lambda P, D: P.ReplicaService(_small(P), 2, **D).n_slots,
+    lambda P, D: P.Engine(_small(P), **D).init(seed=0).depart([0]),
+    lambda P, D: P.Engine(_small(P), **D).init(seed=0).arrive(
+        {"pos": np.zeros((1, 2), np.float32)}),
+    lambda P, D: P.Engine(_small(P), **D).init(seeds=[0, 1]).query_lcr(),
+    lambda P, D: P.Engine(_small(P, open_world=True, n_active=60),
+                          **D).init(seed=0).live_ids()[-3:],
+    lambda P, D: P.Engine(_small(P, open_world=True, n_active=60),
+                          **D).init(seed=0).depart([61]),
+    lambda P, D: P.ReplicaService(_small(P), 0, **D),
+    lambda P, D: P.ReplicaService(_small(P), 1, **D).submit(0, 0),
+    lambda P, D: P.Engine(_small(P), **D).init(seed=0).query_neighbors([]),
+]
+
+
+def _outcome(fn, *args):
+    try:
+        return "value", fn(*args)
+    except Exception as e:  # noqa: BLE001 - the type is the outcome
+        return "raises", type(e)
+
+
+@pytest.mark.parametrize("make", SERVICE, ids=range(len(SERVICE)))
+def test_service_calls_do_what_the_reference_does(make):
+    want = _outcome(make, R, {})
+    assert want[1] is not NotImplementedError
+    assert _outcome(make, T, {"device": "cpu"}) == want
 
 
 PORTED = [

@@ -318,12 +318,16 @@ def test_batched_state_round_trip_and_lockstep():
     back = teng.state_from_numpy(arrays, CPU)
     for k, v in st.items():
         assert back[k] == v if k == "t" else torch.equal(back[k], v), k
+    assert back["t"] == 0  # a lockstep batch keeps one int
+    # replicas at their own steps keep them, in both directions
     arrays["t"] = np.array([0, 0, 1], np.int32)
-    with pytest.raises(ValueError, match="lockstep"):
-        teng.state_from_numpy(arrays, CPU)
-    with pytest.raises(ValueError):
-        teng.stack_states([dict(teng._init_engine(trandom.key(0), cfg, CPU),
-                                t=t) for t in (0, 1)])
+    back = teng.state_from_numpy(arrays, CPU)
+    assert back["t"] == (0, 0, 1)
+    _same(torch.from_numpy(teng.state_to_numpy(back)["t"]),
+          torch.tensor([0, 0, 1], dtype=torch.int32))
+    sub = teng._init_engine(trandom.key(0), cfg, CPU)
+    assert teng.stack_states([dict(sub, t=t) for t in (0, 1)])["t"] == (0, 1)
+    assert teng.stack_states([dict(sub, t=3)] * 2)["t"] == 3
 
 
 # --- the card --------------------------------------------------------------
@@ -424,5 +428,5 @@ def test_batch_config_errors():
     with pytest.raises(ValueError, match="at least one seed"):
         T.Engine(cfg, device=CPU).init(seeds=[])
     eng = T.Engine(cfg, device=CPU).init(seeds=[0, 1])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="replica batch"):
         eng.query_lcr()
