@@ -74,6 +74,20 @@ and prints no result):
               requests of 60-300 steps, and 3 slots and 5 requests of
               hotspot + kmeans every 50 steps: every request's counters
               its solo run's, t_service / t_sequential printed
+  5c. obs     runtime telemetry at full width (the default config,
+              ObsConfig(enabled=True, drain_every=10)): `Engine.step`
+              windows of 7, 293, 100 and 800 steps against the obs-off
+              window runner, bit-equal (state, counters, every ledger
+              counter column against its series), 1,200 rows, as many
+              cell-list launches and synchronising calls (sync debug
+              mode) on both sides; `overhead_ratio` (on / off, min of 3
+              interleaved reps of 300 steps, beside the reference's
+              1.10, printed); exp9's churn for 20 iterations (arrive /
+              depart stamps, `pop` 9,800); `intra_run_tune`'s
+              `tuner_move` events against its history; `trace_run` of
+              20 steps (phase ms, results/obs_trace.json, the traced
+              state bit-equal to the fused run); a 2,000-SE run's
+              ledger on the card and the CPU
   6. scale    a 1M-SE window (area 100,000, paper density)
   7. cpu      the port on the card against the port on the CPU, for rwp
               and every scenario at 2,000 SEs, 100 steps: integer series
@@ -1758,6 +1772,249 @@ def service(zero_steps: int, iters: int, n_requests: int, smi: str, dev):
     return total
 
 
+#: phase obs: the ledger ring's depth, and the reference's bar on the
+#: telemetry's wall overhead (benchmarks/exp10_obs.py, printed beside
+#: the port's ratio, not gated)
+OBS_DRAIN = 10
+OBS_BAR = 1.10
+
+
+def obs_windows(steps: int) -> tuple:
+    """Phase obs's `Engine.step` windows over `steps` steps: (7, 293,
+    100, 800) at 1,200, so windows end mid-ring (a tail to flush) and
+    start mid-ring (wrap blocks with slots from before the window)."""
+    return (7, steps // 4 - 7, steps // 12, steps - steps // 4 - steps // 12)
+
+
+#: the warning of PyTorch's sync debug mode, one a synchronising call
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextmanager
+def sync_count():
+    """The warnings raised inside the block with PyTorch's sync debug mode
+    on: yields a dict that holds, once the block ends, "syncs" (the
+    synchronising calls) and "other" (the other warnings' texts)."""
+    import warnings
+    out = {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    texts = [str(w.message) for w in caught]
+    out["syncs"] = sum(SYNC_WARNING in t for t in texts)
+    out["other"] = sorted({t[:160] for t in texts if SYNC_WARNING not in t})
+
+
+def obs(steps: int, tune_steps: int, cpu_steps: int, smi: str, dev):
+    """Runtime telemetry (`repro_torch.obs`) at full width, the default
+    EngineConfig() with ObsConfig(enabled=True, drain_every=10):
+
+    - `Engine.step` windows of `obs_windows(steps)`, against the obs-off
+      window runner (`engine._run_steps`, then `series_counters`, as
+      `Engine.step` runs it without telemetry) of the same seed and
+      windows: final state bit-equal, each window's counters equal, one
+      ledger row a step with every counter column equal to the obs-off
+      series and the per-LP loads summing to the population, as many
+      cell-list launches and as many synchronising calls on both sides;
+    - the overhead: `Engine.step(300)` with telemetry on and off, three
+      interleaved reps each side, the ratio of their minima;
+    - exp9's churn for 20 iterations (n_active 9,800, depart 200 /
+      arrive 200 / step 1): arrive and depart events stamped at the
+      engine's step, the `pop` column at 9,800;
+    - `intra_run_tune` (window 100, `tune_steps` steps) with a session:
+      one `tuner_move` a change of MF in its history;
+    - `trace_run` of 20 steps after 2 of warm-up: the phase summary in
+      ms, the JSON under results/, and `trace_steps`' state bit-equal to
+      `_run_steps`' from the same init;
+    - a 2,000-SE run of `cpu_steps` steps on the card and on the CPU:
+      ledger rows and events equal.
+
+    Launch counts are set to 0 just before each run and read just
+    after; their sum is returned."""
+    import numpy as np
+
+    from repro_torch import random as trandom
+    from repro_torch.core import Engine, EngineConfig, SelfTuneConfig
+    from repro_torch.core import engine as teng
+    from repro_torch.core.selftune import intra_run_tune
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.obs import (ObsConfig, Telemetry, runtime, trace_run,
+                                 trace_steps, TraceRecorder)
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    on = ObsConfig(enabled=True, drain_every=OBS_DRAIN)
+    cfg = EngineConfig(timesteps=0, obs=on)
+    off = EngineConfig(timesteps=0)
+    windows = obs_windows(steps)
+    eng = Engine(cfg, device=dev).init(seed=0)
+    with sync_count() as warm:  # a first synchronising call, uncounted
+        torch.zeros(1, device=dev).cpu()
+    kbuild.reset_launches()
+    with sync_count() as on_syncs:
+        got_on = [eng.step(n) for n in windows]
+    on_launches = kbuild.launches()
+    state = teng._init_engine(trandom.key(0), off, dev)
+    series, got_off = [], []
+    kbuild.reset_launches()
+    with sync_count() as off_syncs:
+        for n in windows:
+            state, s = teng._run_steps(state, off, n)
+            got_off.append(teng.series_counters(s))
+            series.append(s)
+    off_launches = kbuild.launches()
+    count(on_launches)
+    count(off_launches)
+    series = {k: torch.cat([s[k] for s in series]).cpu() for k in series[0]}
+    led = eng.ledger()
+    cols = ("lcr", "local_msgs", "remote_msgs", "migrations", "heu_evals",
+            "repartitions", "grid_overflow")
+    col_bad = [k for k in cols if not np.array_equal(
+        led.column(k), series[k].double().numpy())]
+    loads = sum(led.column(f"lp_load_{i}") for i in range(cfg.abm.n_lp))
+    state_bad = [k for k in state if k != "t" and
+                 not torch.equal(state[k], eng.state[k])]
+    row = {"run": "default", "card": smi, "windows": list(windows),
+           "drain_every": OBS_DRAIN, "rows": len(led),
+           "steps_stamped": bool(np.array_equal(
+               led.column("step"), np.arange(float(steps)))),
+           "column_mismatch": col_bad, "state_mismatch": state_bad,
+           "counters_equal": got_on == got_off,
+           "loads_sum": sorted(set(loads.tolist())),
+           "launches_on": on_launches, "launches_off": off_launches,
+           "syncs_on": on_syncs["syncs"], "syncs_off": off_syncs["syncs"],
+           "warm_syncs": warm["syncs"],
+           "other_warnings": sorted(set(warm["other"] + on_syncs["other"]
+                                        + off_syncs["other"])),
+           "drain_stalls": eng.telemetry.drain.stalls,
+           "events": len(eng.events())}
+    emit(phase="obs", **row)
+    if col_bad or state_bad or got_on != got_off or len(led) != steps or \
+            not row["steps_stamped"] or row["loads_sum"] != [cfg.abm.n_se] \
+            or on_launches["proximity_grid"] != steps or \
+            off_launches["proximity_grid"] != steps or \
+            on_syncs["syncs"] != off_syncs["syncs"]:
+        raise AssertionError(f"obs: telemetry on differs from off: {row}")
+    eng.close()
+    del eng, state, series
+
+    # the overhead, off and on in turns
+    n = min(300, steps)
+    engs = {k: Engine(c, device=dev).init(seed=0)
+            for k, c in (("off", off), ("on", cfg))}
+    times = {"off": [], "on": []}
+    kbuild.reset_launches()
+    for order in (("off", "on"), ("on", "off"), ("off", "on")):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engs[k].step(n)
+            times[k].append(time.perf_counter() - t0)
+    count(kbuild.launches())
+    t_on, t_off = min(times["on"]), min(times["off"])
+    emit(phase="obs", run="overhead", card=smi, steps=n, reps=3,
+         s_per_step_on=t_on / n, s_per_step_off=t_off / n,
+         overhead_ratio=t_on / t_off, reference_bar=OBS_BAR,
+         times_on=times["on"], times_off=times["off"])
+    del engs
+
+    # exp9's churn with telemetry
+    n_se = cfg.abm.n_se
+    ccfg = EngineConfig(open_world=True, n_active=n_se - CHURN_BATCH, obs=on)
+    g = np.random.default_rng(0)
+    eng = Engine(ccfg, device=dev).init(seed=0)
+    iters = 20
+    kbuild.reset_launches()
+    for _ in range(iters):
+        eng.depart(g.choice(eng.live_ids(), CHURN_BATCH, replace=False))
+        eng.arrive({"pos": g.uniform(0, ccfg.abm.area, (CHURN_BATCH, 2))})
+        eng.step(1)
+    count(kbuild.launches())
+    want = [(k, t, CHURN_BATCH, p) for t in range(iters)
+            for k, p in (("depart", n_se - 2 * CHURN_BATCH),
+                         ("arrive", n_se - CHURN_BATCH))]
+    got = [(e.kind, e.step, e.data["count"], e.data["population"])
+           for e in eng.events() if e.kind in ("arrive", "depart")]
+    pop = sorted(set(eng.ledger().column("pop").tolist()))
+    emit(phase="obs", run="churn", card=smi, iters=iters,
+         batch=CHURN_BATCH, churn_events=len(got), stamps_exact=got == want,
+         pop=pop, rows=len(eng.ledger()))
+    if got != want or pop != [n_se - CHURN_BATCH] or len(eng.ledger()) \
+            != iters:
+        raise AssertionError(f"obs churn: events {got[:4]}, pop {pop}")
+    eng.close()
+    del eng
+
+    # the tuner's moves
+    tele = Telemetry(off)
+    kbuild.reset_launches()
+    with runtime.use(tele):
+        _, hist = intra_run_tune(trandom.key(0), EngineConfig(),
+                                 SelfTuneConfig(window=100),
+                                 total_steps=tune_steps, device=dev)
+    count(kbuild.launches())
+    moves = [(e.data["window"], e.data["prev_mf"], e.data["mf"], e.step)
+             for e in tele.events.records("tuner_move")]
+    want = [(w, hist[w][1], hist[w + 1][1], (w + 1) * 100)
+            for w in range(len(hist) - 1) if hist[w + 1][1] != hist[w][1]]
+    emit(phase="obs", run="tuner", card=smi, steps=tune_steps, window=100,
+         moves=len(moves), mf=[h[1] for h in hist])
+    if not want or moves[:len(want)] != want:
+        raise AssertionError(f"obs tuner: moves {moves} against {want}")
+
+    # the trace, and a traced run against the fused one
+    kbuild.reset_launches()
+    rec = trace_run(EngineConfig(), seed=0, n_steps=20, warmup=2,
+                    device=dev)
+    os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
+    path = rec.save(os.path.join(HERE, "results", "obs_trace.json"))
+    start = teng._init_engine(trandom.key(0), off, dev)
+    traced = trace_steps(start, off, 20, TraceRecorder(), warmup=2)
+    fused, _ = teng._run_steps(start, off, 22)
+    count(kbuild.launches())
+    bad = [k for k in fused if k != "t" and
+           not torch.equal(fused[k], traced[k])]
+    summ = rec.phase_summary()
+    emit(phase="obs", run="trace", card=smi, steps=20, warmup=2,
+         path=os.path.relpath(path, HERE),
+         phase_ms={k: 1e3 * v["mean"] for k, v in summ.items()},
+         spans={k: v["n"] for k, v in summ.items()},
+         step_ms=1e3 * sum(v["mean"] for v in summ.values()),
+         state_mismatch=bad)
+    if bad or any(v["n"] != 20 for v in summ.values()):
+        raise AssertionError(f"obs trace: traced state differs in {bad}")
+
+    # the card against the CPU
+    ccfg = dataclasses.replace(exp6_cfg("rwp", cpu_steps, n=2000,
+                                        area=4472.0), obs=on)
+    teles = []
+    kbuild.reset_launches()
+    for d in (dev, "cpu"):
+        e = Engine(ccfg, device=d)
+        e.run(seed=0)
+        teles.append(e.telemetry)
+    count(kbuild.launches())
+    rows_equal = bool(np.array_equal(teles[0].ledger.rows(),
+                                     teles[1].ledger.rows()))
+    ev = [[(e.kind, e.step, e.data) for e in t.events.records()]
+          for t in teles]
+    emit(phase="obs", run="card vs cpu", card=smi, n_se=2000,
+         steps=cpu_steps, rows=len(teles[0].ledger), rows_equal=rows_equal,
+         events_equal=ev[0] == ev[1])
+    if not rows_equal or ev[0] != ev[1] or len(teles[0].ledger) != cpu_steps:
+        raise AssertionError("obs: the card's ledger differs from the CPU's")
+    runtime.set_current(None)
+    return total
+
+
 def profile(steps: int, dev, scenario: str = "", n_rep: int = 1):
     """Where a step of the default config (or of an exp6 scenario at
     full width) spends its time; with `n_rep` > 1, a step of a batch of
@@ -1922,6 +2179,8 @@ def main():
         launches[stem] = scenario_launches[stem]
     service_launches = timed("service", service, min(300, a.steps),
                              a.service_iters, a.service_requests, smi, dev)
+    obs_launches = timed("obs", obs, a.steps, a.tune_steps, a.cpu_steps,
+                         smi, dev)
     timed("scale", scale, a.scale_steps, dev)
     timed("cpu", card_vs_cpu, a.cpu_steps, dev)
     timed("serve_cpu", serve_cpu_phase, dev)
@@ -1964,6 +2223,7 @@ def main():
             "scenario_launches": scenario_launches.get(stem, 0),
             "replicas_launches": replica_launches.get(stem, 0),
             "service_launches": service_launches.get(stem, 0),
+            "obs_launches": obs_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -48,6 +48,13 @@ run), but hold their state, never send, sit in no grid cell, receive
 nothing, are never evaluated and never migrate. `oracle_arrive` and
 `oracle_depart` are the O(batch) scatters of the service's churn.
 
+Telemetry (`cfg.obs.enabled`, one replica): each window carries a
+fresh (drain_every, K) ledger ring on the state's device; each step
+writes its row after the step (`obs.ledger.write_row`), and the ring
+drains to the host by non-blocking copies (`obs.runtime`), so a step
+still makes no host sync. The ring never feeds back into the step. The
+batched paths run without it (`strip_obs`), as the reference's do.
+
 `state_from_numpy` / `state_to_numpy` carry an engine state, solo or
 batched, between the reference and the port (the key as its uint32
 words).
@@ -75,6 +82,8 @@ from repro_torch.core.abm import (ABMConfig, check_trace_horizon,
 from repro_torch.core.costmodel import ExecutionEnvironment
 from repro_torch.core.heuristics import HeuristicConfig
 from repro_torch.fp32 import div32
+from repro_torch.obs import ledger as obs_ledger
+from repro_torch.obs import runtime as obs_runtime
 from repro_torch.obs.config import ObsConfig
 
 SHARDINGS = ("none", "lp_device")
@@ -85,7 +94,6 @@ REPART_SALT = 0x7a47
 
 #: the ROADMAP.md items that bring what the port does not run yet
 LATER = {
-    "obs": "ROADMAP.md queue 1, item 9 (obs/)",
     "sharding": "ROADMAP.md queue 1, item 10 (parallel/lp_shard.py)",
 }
 
@@ -158,14 +166,10 @@ class EngineConfig:
                 "'dense' (the Pallas kernels table every row and have "
                 "no dead-slot mask)")
         # valid, but for a later slice of the port
-        for bad, what, item in (
-                (self.sharding == "lp_device", "sharding='lp_device'",
-                 "sharding"),
-                (self.obs.enabled, "obs.enabled=True", "obs")):
-            if bad:
-                raise NotImplementedError(
-                    f"EngineConfig with {what} is not ported yet; see "
-                    f"{LATER[item]}")
+        if self.sharding == "lp_device":
+            raise NotImplementedError(
+                "EngineConfig with sharding='lp_device' is not ported "
+                f"yet; see {LATER['sharding']}")
 
     def effective_capacity(self) -> Optional[tuple]:
         """Asymmetric capacity shares: explicit `capacity` wins, else the
@@ -182,6 +186,15 @@ class EngineConfig:
         if self.open_world and self.n_active > 0:
             return self.n_active
         return self.abm.n_se
+
+
+def strip_obs(cfg: EngineConfig) -> EngineConfig:
+    """Drop telemetry from a config: the batched paths run without the
+    ledger (it covers the single-replica resident paths), as in the
+    reference."""
+    if not cfg.obs.enabled:
+        return cfg
+    return dataclasses.replace(cfg, obs=ObsConfig())
 
 
 def _init_engine(key, cfg: EngineConfig, device):
@@ -568,18 +581,28 @@ def _run_steps(state, cfg: EngineConfig, n_steps: int, mf=None,
                active=None):
     """Advance n_steps; returns (state, series) with the per-step
     metrics stacked on the device ((T, ...), or (T, R, ...) for a
-    batch; `active` as `step` takes it)."""
+    batch; `active` as `step` takes it). With cfg.obs.enabled (one
+    replica), a fresh ledger ring takes each step's row, drains at its
+    wraps, and its tail is flushed to the current session at the end."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     if not isinstance(mf, torch.Tensor):
         mf = cfg.heuristic.mf if mf is None else float(mf)
     # a batch at its own steps: the steps reach the card once a window
     t0 = steps_on(state["t"], state["lp"].device)
+    ring = obs_ledger.new_ring(cfg, state["lp"].device) \
+        if cfg.obs.enabled else None
+    t_start = state["t"]
     per_step = []
     for k in range(n_steps):
+        t = state["t"]
         state, m = step(state, cfg, mf=mf, tv=t0 + k if k else t0,
                         active=active)
+        if ring is not None:
+            obs_ledger.write_row(ring, cfg, state, m, t)
         per_step.append(m)
+    if ring is not None:
+        obs_runtime.flush_tail(ring, t_start, t_start + n_steps)
     series = {k: torch.stack([m[k] for m in per_step])
               for k in per_step[0]}
     return state, series
@@ -711,7 +734,7 @@ def _run_window_batch(states, cfg: EngineConfig, n_steps: int, mf=None,
     check_trace_horizon(cfg.abm, latest(states["t"]), n_steps)
     n_rep = states["key"].shape[0]
     states, series = _run_steps(
-        states, cfg, n_steps,
+        states, strip_obs(cfg), n_steps,
         mf=_mf_vector(cfg, mf, n_rep, states["lp"].device), active=active)
     return states, _batch_counters(series, n_rep)
 
@@ -723,7 +746,7 @@ def _run_batch(cfg: EngineConfig, seeds, device):
     solo run's schema, `migration_ratio` included)."""
     check_trace_horizon(cfg.abm, 0, cfg.timesteps)
     states = _init_batch(cfg, list(seeds), device)
-    states, series = _run_steps(states, cfg, cfg.timesteps)
+    states, series = _run_steps(states, strip_obs(cfg), cfg.timesteps)
     reps = _batch_counters(series, len(seeds))
     for c in reps:
         c["migration_ratio"] = _migration_ratio(c, cfg)

@@ -21,8 +21,9 @@ own windows and moving its own MF (an (R,) vector), so replica r's
 history is the solo tuner's on seeds[r], bit for bit.
 
 The entry points run on the card unless `device="cpu"` is given. The
-reference's `tuner_move` telemetry event is not emitted: the port has
-no `obs` runtime yet (ROADMAP.md queue 1, item 9).
+intra-run tuner reports each MF change as a `tuner_move` event to the
+current telemetry session, if any (`repro_torch.obs.runtime`); the
+batched tuner, as the reference's, reports none.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.core.costmodel import CostParams, SETUPS, wct, wct_env
 from repro_torch.core.engine import (EngineConfig, _init_batch, _init_engine,
                                      _run_window, _run_window_batch)
 from repro_torch.core.service import resolve_device
+from repro_torch.obs import runtime as obs_runtime
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +97,14 @@ def intra_run_tune(key, cfg: EngineConfig, tc: SelfTuneConfig,
     tuner = _Descent(tc)
     for w in range(total // tc.window):
         state, counters = _run_window(state, cfg, tc.window, mf=tuner.mf)
+        prev_mf = tuner.mf
         tuner.observe(w, counters, params, cfg)
+        if tuner.mf != prev_mf:
+            # the tuner's decision, stamped with the first step the new
+            # MF governs
+            obs_runtime.emit_event("tuner_move", (w + 1) * tc.window,
+                                   mf=tuner.mf, prev_mf=prev_mf, window=w,
+                                   tec_per_step=tuner.history[-1][3])
     return state, tuner.history
 
 

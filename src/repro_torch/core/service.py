@@ -30,8 +30,15 @@ counters dict per replica.
   their own steps; each request's counters are its solo run's.
 
 Churn and queries address one resident world: a batched engine raises
-on them. Telemetry (`ledger`, `events`, `prometheus`) comes with a later
-slice and raises `NotImplementedError`, naming its ROADMAP.md item.
+on them.
+
+Telemetry (`EngineConfig(obs=ObsConfig(enabled=True))`): the session
+(`self.telemetry`) hears the ledger rows of every single-replica `run`
+and `step` window (the batched paths run without it, `strip_obs`), and
+churn batches as `arrive` / `depart` events stamped with the engine's
+step; `ledger()`, `events(kind)` and `prometheus()` read it. The session
+is made current (`repro_torch.obs.runtime`) before every `run` and
+`step`.
 """
 from __future__ import annotations
 
@@ -42,9 +49,12 @@ from repro_torch import random as trandom
 from repro_torch.core import engine as _eng
 from repro_torch.core import neighbors
 from repro_torch.core.abm import interaction_counts_overflow
-from repro_torch.core.engine import LATER, EngineConfig
+from repro_torch.core.engine import EngineConfig
 from repro_torch.core.stats import merge_counters
 from repro_torch.fp32 import f32
+from repro_torch.obs import ledger as obs_ledger
+from repro_torch.obs import runtime as obs_runtime
+from repro_torch.obs.prom import prometheus_text
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,10 +68,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet; see {LATER[item]}")
-
-
 def _on(array, dtype, device):
     """A host array as a tensor on `device` (`engine.host_to`)."""
     return _eng.host_to(torch.from_numpy(
@@ -71,7 +77,7 @@ def _on(array, dtype, device):
 class Engine:
     """Resident facade over the GAIA engine (see module docstring)."""
 
-    def __init__(self, cfg: EngineConfig, device=None):
+    def __init__(self, cfg: EngineConfig, device=None, obs_sinks=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = None
@@ -81,6 +87,10 @@ class Engine:
         self._steps = 0
         self._live = set()
         self._free = []
+        # the telemetry session (cfg.obs.enabled): ledger rows of the
+        # single-replica windows, churn and tuner events
+        self.telemetry = (obs_ledger.Telemetry(cfg, sinks=obs_sinks)
+                          if cfg.obs.enabled else None)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -106,6 +116,8 @@ class Engine:
         per-step series, counters); with `seeds`, the stacked states,
         the (T, R, ...) series and a list of counters, one per replica.
         Does not touch the resident state."""
+        if self.telemetry is not None:
+            obs_runtime.set_current(self.telemetry)
         if seeds is not None:
             return _eng._run_batch(self.cfg, list(seeds), self.device)
         return _eng._run(trandom.key(seed), self.cfg, self.device)
@@ -129,6 +141,8 @@ class Engine:
         accumulates them into `metrics()`. `mf` overrides the Migration
         Factor for the window (a batch: one value, or one a replica)."""
         self._require_state()
+        if self.telemetry is not None:
+            obs_runtime.set_current(self.telemetry)
         if self._batched:
             self.state, counters = _eng._run_window_batch(
                 self.state, self.cfg, n, mf=mf)
@@ -159,6 +173,44 @@ class Engine:
         c = merge_counters(self._parts, self._weights)
         c["migration_ratio"] = c["migrations"] / per_k
         return c
+
+    # -- telemetry views (cfg.obs.enabled) -------------------------------
+
+    def _require_obs(self, what: str):
+        if self.telemetry is None:
+            raise RuntimeError(
+                f"{what} needs EngineConfig(obs=ObsConfig(enabled=True))")
+
+    def ledger(self):
+        """The per-step :class:`~repro_torch.obs.ledger.MetricsLedger`
+        filled by the ring's drain (rows()/column()/summary()/latest())."""
+        self._require_obs("ledger")
+        return self.telemetry.ledger
+
+    def events(self, kind=None) -> list:
+        """Telemetry events recorded so far, newest last, optionally
+        filtered by kind (see repro_torch.obs.events.EVENT_KINDS)."""
+        self._require_obs("events")
+        return self.telemetry.events.records(kind)
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition of the session: latest per-step
+        gauges and whole-run means from the ledger, event counts, and
+        the facade's own occupancy."""
+        self._require_obs("prometheus")
+        extra = {"steps_total": self._steps}
+        if self.cfg.open_world:
+            extra["population"] = self.population()
+        return prometheus_text(self.telemetry, extra=extra)
+
+    def close(self) -> None:
+        """Flush and close the telemetry sinks (file sinks in
+        particular); the engine stays usable, and events stop reaching
+        closed sinks."""
+        if self.telemetry is not None:
+            if obs_runtime.get_current() is self.telemetry:
+                obs_runtime.set_current(None)
+            self.telemetry.close()
 
     # -- open-world churn ------------------------------------------------
 
@@ -212,6 +264,9 @@ class Engine:
         self.state = _eng.oracle_arrive(self.state,
                                         _on(ids, np.int64, dev), trows)
         self._live.update(ids)
+        if self.telemetry is not None:
+            self.telemetry.emit("arrive", self._steps, count=b,
+                                population=len(self._live))
         return ids
 
     def depart(self, ids) -> None:
@@ -231,6 +286,9 @@ class Engine:
             self.state, _on(ids, np.int64, self.device))
         self._live.difference_update(ids)
         self._free.extend(reversed(ids))
+        if self.telemetry is not None:
+            self.telemetry.emit("depart", self._steps, count=len(ids),
+                                population=len(self._live))
 
     # -- device-state queries -------------------------------------------
 
@@ -306,17 +364,6 @@ class Engine:
 
         hit = valid & axis(pos[:, 0], x0, x1) & axis(pos[:, 1], y0, y1)
         return sorted(ext[hit].cpu().tolist())
-
-    # -- later slices ----------------------------------------------------
-
-    def ledger(self):
-        _later("Engine.ledger", "obs")
-
-    def events(self, kind=None):
-        _later("Engine.events", "obs")
-
-    def prometheus(self):
-        _later("Engine.prometheus", "obs")
 
 
 class ReplicaService:

@@ -1,6 +1,6 @@
 """Replica statistics and window merging — the port's own copy of the
-part of `repro.core.stats` the engine, its replica batches and their
-summaries use. Host-only, math only.
+part of `repro.core.stats` the engine, its replica batches, their
+summaries and the telemetry ledger use. Host-only, math only.
 
 The schema of one reported metric is {"mean", "std", "ci95", "n"}:
 `std` is the sample standard deviation (ddof=1) and `ci95` the
@@ -63,6 +63,40 @@ def percentile(values: Sequence[float], q: float) -> float:
     k = (len(xs) - 1) * (q / 100.0)
     lo, hi = math.floor(k), math.ceil(k)
     return xs[lo] + (xs[hi] - xs[lo]) * (k - lo)
+
+
+class StreamingStats:
+    """Welford one-pass mean/variance accumulator in the replica schema:
+    O(1) state a metric, so the telemetry ledger (`repro_torch.obs`)
+    summarises a resident engine's rows without keeping them, and
+    `as_dict()` gives the mean/std/ci95/n schema of `replica_stats`."""
+
+    __slots__ = ("n", "mean", "_m2", "min", "max")
+
+    def __init__(self):
+        self.n = 0
+        self.mean = 0.0
+        self._m2 = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+
+    def add(self, x: float) -> None:
+        x = float(x)
+        self.n += 1
+        d = x - self.mean
+        self.mean += d / self.n
+        self._m2 += d * (x - self.mean)
+        self.min = min(self.min, x)
+        self.max = max(self.max, x)
+
+    @property
+    def std(self) -> float:
+        return math.sqrt(self._m2 / (self.n - 1)) if self.n > 1 else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        ci = (t95(self.n - 1) * self.std / math.sqrt(self.n)
+              if self.n > 1 else 0.0)
+        return {"mean": self.mean, "std": self.std, "ci95": ci, "n": self.n}
 
 
 def merge_counters(parts: Sequence[Dict], weights: Sequence[float]) -> Dict:

@@ -1,14 +1,11 @@
-"""Telemetry configuration.
+"""Telemetry configuration (the port of `repro.obs.config`).
 
-``ObsConfig`` rides on :class:`repro.core.engine.EngineConfig` as the
-``obs`` field. It must stay a frozen (hashable) dataclass: the compiled
-window/scan executables are memoized on the whole ``EngineConfig``, and
-an *enabled* telemetry config legitimately changes the traced program
-(the ring-buffer write + drain callback are real ops), so it has to be
-part of the cache key. A *disabled* config, by contrast, is normalized
-to the default ``ObsConfig()`` inside ``window_key_cfg`` so every
-telemetry-off variant shares one cache entry — that identity is the
-"zero-op-when-off" invariant and is asserted by tests/test_obs.py.
+``ObsConfig`` rides on :class:`repro_torch.core.engine.EngineConfig` as
+the ``obs`` field, a frozen dataclass with the reference's fields,
+defaults and checks. A *disabled* config, whatever its other knobs,
+leaves the window runner's ops those of the default ``ObsConfig()``
+(tests/test_torch_obs.py records both op sequences); an *enabled* one
+adds the ring write and its drain, and changes no result.
 """
 from __future__ import annotations
 
@@ -19,12 +16,12 @@ import dataclasses
 class ObsConfig:
     """Runtime telemetry knobs (ledger + event log + trace).
 
-    enabled      master switch; False means the compiled step/scan is
-                 bit-for-bit the untelemetered program (no extra ops)
-    drain_every  ring-buffer depth in steps: the on-device ledger ring
-                 holds ``drain_every`` rows and is flushed to host via
-                 one async ``jax.debug.callback`` per ``drain_every``
-                 steps (never per step), so the jitted scan stays whole
+    enabled      master switch; False means the step loop runs exactly
+                 the untelemetered ops (no extra ops)
+    drain_every  ring depth in steps: the on-device ledger ring holds
+                 ``drain_every`` rows and is copied to the host without
+                 blocking once per ``drain_every`` steps (never per
+                 step)
     events       synthesize structured events (migration_burst /
                  repartition / overflow alarms) host-side from drained
                  ledger rows; direct emissions (arrive/depart batches,

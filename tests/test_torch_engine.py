@@ -135,20 +135,17 @@ def test_rejects_what_the_reference_rejects(which, fields):
     assert type(ref_err.value) is not NotImplementedError
 
 
-LATER = [
-    lambda: T.EngineConfig(sharding="lp_device"),
-    lambda: T.EngineConfig(obs=TObs(enabled=True)),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").ledger(),
-    lambda: T.Engine(T.EngineConfig(sharding="lp_device"),
-                     device="cpu").run(seeds=[0, 1]),
-    lambda: T.EngineConfig(open_world=True, sharding="lp_device"),
-    lambda: T.Engine(T.EngineConfig(), device="cpu").events(),
-    lambda: T.Engine(T.EngineConfig(open_world=True),
-                     device="cpu").prometheus(),
-]
+#: the ids are the cases' places in the list before telemetry was
+#: ported (its four cases, 1, 2, 5 and 6, went with it)
+LATER = {
+    0: lambda: T.EngineConfig(sharding="lp_device"),
+    3: lambda: T.Engine(T.EngineConfig(sharding="lp_device"),
+                        device="cpu").run(seeds=[0, 1]),
+    4: lambda: T.EngineConfig(open_world=True, sharding="lp_device"),
+}
 
 
-@pytest.mark.parametrize("make", LATER, ids=range(len(LATER)))
+@pytest.mark.parametrize("make", LATER.values(), ids=LATER.keys())
 def test_later_slices_raise_naming_the_roadmap(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make()
@@ -476,6 +473,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert 'repro_torch.kernels.cell_sums.ops' in sys.modules\n"
         "assert 'repro_torch.data.pipeline' in sys.modules\n"
         "assert 'repro_torch.launch.serve' in sys.modules\n"
+        "assert 'repro_torch.obs.ledger' in sys.modules\n"
+        "assert 'repro_torch.obs.trace' in sys.modules\n"
         "print(bad)\n")
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     out = subprocess.run([sys.executable, "-c", code], check=True,
