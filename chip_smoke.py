@@ -55,6 +55,28 @@ and prints no result):
               whatever R); the batched tuner
               (`intra_run_tune_batch`, R = 4, window 100, 600 steps),
               each history the solo tuner's
+  4c. sharded the LP-per-device engine (`repro_torch.parallel`): the
+              default config at D = 1, 2, 4 shards for 1,200 steps,
+              each bit-equal to phase main's GAIA-on run (unsharded
+              state and every series), shard_overflow 0, one cell-list
+              launch a step (s/step against the oracle's, peak memory,
+              halo_frac and LCR by 100-step window, bytes_on_wire), and
+              the synchronising calls of an `Engine.step(300)` window
+              against the oracle's; exp5's full world (50k SEs, 8 LPs)
+              at D = 8 for 300 steps; at D = 2 for 100 steps the dense
+              world, exp6's epidemic (2 cell-list launches a step),
+              flock (1 cell-sum launch a step) and hotspot + kmeans
+              every 50 (the oracle's capacity-assign launches), each
+              bit-equal to its oracle; the open world at D = 4 (zero
+              churn against the closed world, exp9's churn for 40
+              iterations, the queries against brute force); R = 4
+              replicas at D = 2 against their solo runs; telemetry at
+              D = 4 (ledger columns against the series, one trace span
+              a shard, phase and step, each span's per-shard n_valid
+              and halo_n that shard's counts); the launcher
+              (`python -m repro_torch.parallel.multihost --processes 1
+              --local-shards 4 --backend nccl`) against the in-process
+              run; rwp at 2,000 SEs, D = 2, card against CPU
   5. scenarios exp6's fleet at full width (10k SEs, area 10,000, GAIA
               on): the epidemic for 1,200 steps (two cell-list launches
               a step), hotspot, group, flock and trace replay, and
@@ -90,11 +112,11 @@ and prints no result):
               ledger on the card and the CPU
   6. scale    a 1M-SE window (area 100,000, paper density)
   7. cpu      the port on the card against the port on the CPU, for rwp
-              and every scenario at 2,000 SEs, 100 steps: integer series
+              and every scenario at 2,000 SEs, 50 steps: integer series
               identical, positions within one ULP of `area` (kmeans,
               voronoi and flock: their agreement is printed); batched
               rwp and hotspot runs (R = 3) held the same way; an open
-              world under churn (100 steps of 20 departures and arrivals)
+              world under churn (50 steps of 20 departures and arrivals)
               and a 3-slot ReplicaService of 5 requests, counters
               identical
   8. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
@@ -133,7 +155,8 @@ untraced and 8 traced decode steps.
     python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
         --scale-steps 3 --cpu-steps 20 --epi-steps 50 \
         --scenario-steps 110 --replica-scenario-steps 20 --tune-steps 200 \
-        --service-iters 20 --service-requests 4
+        --service-iters 20 --service-requests 4 --exp5-steps 20 \
+        --shard-steps 20 --shard-churn 5
 
 is a shake-out run that cuts every phase short (--gen sets the serve
 phase's decode steps).
@@ -419,7 +442,14 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
     from repro_torch.core import neighbors
     from repro_torch.core.abm import epidemic_send_prob
     from repro_torch.kernels.proximity import ops, ref
-    if replicas > 1:
+    valid = None
+    if layout == "sharded":
+        # the sharded engine's D = `replicas` views of its first step:
+        # own rows (senders), then the halo rows every peer sent
+        # (non-senders) and their padding (lp -1, out of the grid)
+        cfg, pos, lp, snd = sharded_views(seed, replicas, dev)
+        n, valid = pos.shape[-2], lp >= 0
+    elif replicas > 1:
         worlds = [world(n, area, rng, seed + r, dev) for r in range(replicas)]
         cfg = worlds[0][0]
         pos, lp, snd = (torch.stack([w[i] for w in worlds])
@@ -442,8 +472,8 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
         lp = ((st["epi"] > 0) & hot).to(torch.int32)
         snd = st["epi"] == 0
     spec = cfg.grid_spec()
-    valid = dead_rows(snd.shape, dead, dev) if dead else None
     if dead:
+        valid = dead_rows(snd.shape, dead, dev)
         lp = torch.where(valid, lp, -1)
     grid = neighbors.build_grid(pos, spec, valid=valid)
     args = (pos, lp, snd, n_lp, area, rng, spec, grid)
@@ -453,8 +483,8 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     overflow = bool(grid["overflow"].any())
-    dead_zero = not dead or bool((got[~valid] == 0).all())
-    if dead and got.data_ptr() != ptr:
+    dead_zero = valid is None or bool((got[~(valid & snd)] == 0).all())
+    if (dead or layout == "sharded") and got.data_ptr() != ptr:
         raise AssertionError("the cell-list kernel's output did not land "
                              "in the dirtied block")
     if err != 0 or overflow != (layout == "clustered") or not dead_zero:
@@ -467,18 +497,24 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
         raise AssertionError(f"grid kernel at {replicas} x {n}: "
                              f"{ops.grid_kernel.launches} launches a call")
     # work this run's data needs, a world at a time
-    live = valid if dead else torch.ones_like(snd)
+    live = valid if valid is not None else torch.ones_like(snd)
     pairs = sum(_grid_pairs(p, s, spec, v) for p, s, v in
                 zip(pos.view(-1, n, 2), snd.view(-1, n), live.view(-1, n)))
     nc = spec.ncell
-    # pos, lp, sender flag, order and cell_sorted per row, the CSR
-    # offsets, the output
+    # pos, lp, order and cell_sorted per row in the grid (a dead or
+    # padding row is binned out: never read as a neighbour), the sender
+    # flag and the output per row, the CSR offsets
     rows = replicas * n
-    nbytes = rows * (8 + 4 + 1 + 8 + 4) + replicas * nc * nc * 16 \
-        + rows * n_lp * 4
+    nbytes = int(live.sum()) * (8 + 4 + 8 + 4) + rows * (1 + n_lp * 4) \
+        + replicas * nc * nc * 16
     call = lambda: ops.proximity_lp_counts_grid(*args)  # noqa: E731
     dead_kw = {"dead_rows": dead, "dead_rows_zero": dead_zero,
                "output_dirtied": True} if dead else {}
+    if layout == "sharded":
+        dead_kw = {"shards": replicas, "view_rows": n,
+                   "padding_rows": int((~valid).sum()),
+                   "halo_and_padding_rows_zero": dead_zero,
+                   "output_dirtied": True}
     return {"n": n, "replicas": replicas, "area": area, "range": rng,
             "layout": layout, "n_lp": n_lp, "capacity": spec.capacity,
             "max_cell": int(grid["counts"].max()), "overflow": overflow,
@@ -489,6 +525,62 @@ def check_grid(n, area, rng, seed, dev, layout="engine", replicas=1,
                                 batch=1),
             **bound(nbytes, pairs * OPS_PER_PAIR), "pair_tests": pairs,
             "library_ms": None}
+
+
+def trace_args_mismatch(spans, cfg, dev, steps: int) -> list:
+    """The sharded trace's spans whose per-shard args disagree with a
+    plain run of the same seed: on shard row d, `n_valid` must be shard
+    d's live slots after that step's arrivals, and the step's `halo_n`
+    over the rows must give the series' halo_frac. Returns the
+    (phase, step, shard) of each mismatch."""
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.core import engine as teng
+    st = teng._init_engine(trandom.key(0), cfg, dev)
+    want = {}
+    for _ in range(steps):
+        t = st["t"]
+        st, m = teng.step(st, cfg)
+        want[t] = ((st["gid"] >= 0).sum(-1).tolist(),
+                   float(m["halo_frac"]))
+    bad, halo = [], {}
+    for e in spans:
+        a, d = e["args"], e["tid"]
+        n_valid, _ = want[a["step"]]
+        if a.get("n_valid") != n_valid[d]:
+            bad.append((e["name"], a["step"], d))
+        if "halo_n" in a:
+            halo.setdefault((e["name"], a["step"]), {})[d] = a["halo_n"]
+    for (name, t), by_shard in halo.items():
+        n_valid, frac = want[t]
+        got = np.float32(sum(by_shard.values()) /
+                         ((len(n_valid) - 1) * sum(n_valid)))
+        if len(by_shard) != len(n_valid) or float(got) != frac:
+            bad.append((name, t, "halo_frac"))
+    return bad
+
+
+def sharded_views(seed: int, D: int, dev):
+    """(abm config, view_pos, view_lp, senders) of the default config's
+    sharded first step at D shards: the (D, C + D * halo_cap) views the
+    cell-list kernel takes, with the shards' senders on their own rows
+    only."""
+    from repro_torch import random as trandom
+    from repro_torch.core import EngineConfig
+    from repro_torch.core import engine as teng
+    from repro_torch.parallel import lp_shard
+    cfg = EngineConfig(sharding="lp_device", n_devices=D)
+    px = {"st": teng._init_engine(trandom.key(seed), cfg, dev), "mf": 1.2,
+          "active": None}
+    for name, fn in lp_shard.sharded_phases(cfg):
+        px = fn(px)
+        if name == "halo_exchange":
+            break
+    pos, lp, own = px["view_pos"], px["view_lp"], px["sender"]
+    snd = torch.cat([own, torch.zeros(
+        (D, pos.shape[-2] - own.shape[-1]), dtype=torch.bool, device=dev)],
+        -1)
+    return cfg.abm, pos, lp, snd
 
 
 def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1,
@@ -1772,6 +1864,346 @@ def service(zero_steps: int, iters: int, n_requests: int, smi: str, dev):
     return total
 
 
+#: phase sharded: the shard counts of the default config, exp5's `full`
+#: world (benchmarks/exp5_sharded.py:45, 58-63), and the launcher's run
+SHARD_COUNTS = (1, 2, 4)
+EXP5_FULL = dict(n_se=50_000, n_lp=8, area=10_000.0, speed=11.0,
+                 interaction_range=250.0, p_interact=0.2)
+
+
+def _lp_device(cfg, D: int, **kw):
+    return dataclasses.replace(cfg, sharding="lp_device", n_devices=D, **kw)
+
+
+def _run_mismatch(state, series, ref_state, ref_series, live=None):
+    """The keys where a sharded run (state unsharded) differs from an
+    oracle run: every oracle series it has, every state leaf (an open
+    world's live rows only)."""
+    bad = [k for k in ref_series if k in series
+           and not torch.equal(series[k], ref_series[k])]
+    for k, v in state.items():
+        if k == "t":
+            continue
+        a, b = v, ref_state[k]
+        if live is not None and k != "mob_g" and k != "key":
+            a, b = (a[:, live], b[:, live]) if k == "ring" else \
+                (a[live], b[live])
+        if not torch.equal(a, b):
+            bad.append(k)
+    return bad
+
+
+def _windows(x, width: int = 100) -> list:
+    """Means of a per-step series over windows of `width` steps."""
+    w = min(width, x.shape[0])
+    return x[:x.shape[0] // w * w].view(-1, w).double().mean(1).tolist()
+
+
+def sharded(steps: int, exp5_steps: int, steps_short: int, churn_iters: int,
+            solo, smi: str, dev):
+    """The LP-per-device engine (`repro_torch.parallel`) on the card:
+
+    - the default EngineConfig() at D = 1, 2, 4 for `steps` steps: the
+      unsharded final state and every oracle series bit-equal to phase
+      main's GAIA-on run (`solo`), shard_overflow 0, one cell-list launch
+      a step; s/step beside the oracle's, peak memory, halo_frac and LCR
+      by 100-step window, bytes_on_wire; and the synchronising calls of
+      one `Engine.step(300)` window, sharded (D = 4) against the oracle;
+    - exp5's `full` world (50k SEs, 8 LPs, mig_capacity 12,500) at D = 8
+      for `exp5_steps` steps against its oracle on the card;
+    - phase main's dense world at D = 2, exp6's epidemic, flock and
+      hotspot + kmeans every 50 steps at D = 2, `steps_short` steps each,
+      against their oracles, with the kernels' launches a step (epidemic
+      2 cell-list, flock 1 cell-sum, the oracle's capacity-assign count);
+    - the open world at D = 4: zero churn against the closed world, then
+      exp9's churn for `churn_iters` iterations (n_active 9,800, 200
+      departures and arrivals, 1 step) and the three queries against
+      brute force over the slot universe;
+    - R = 4 replicas at D = 2, `steps_short` steps: each replica its solo
+      sharded run's, one cell-list launch a step;
+    - telemetry at D = 4 (drain_every 10, `min(300, steps)` steps): the
+      ledger's halo_frac / bytes_on_wire / shard_overflow columns equal
+      to the obs-off series; a 5-step trace with one span a (shard,
+      phase, step);
+    - the launcher (`python -m repro_torch.parallel.multihost
+      --processes 1 --local-shards 4 --backend nccl`): its RESULT
+      counters equal to the in-process run;
+    - rwp at 2,000 SEs, D = 2, `steps_short` steps, card against CPU.
+
+    Launch counts are set to 0 just before each run and read just after;
+    their sum is returned."""
+    import numpy as np
+
+    from repro_torch import random as trandom
+    from repro_torch.core import (ABMConfig, Engine, EngineConfig,
+                                  HeuristicConfig, neighbors)
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.obs import ObsConfig, trace_run
+    from repro_torch.parallel import lp_shard
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    def launched(fn, *args):
+        kbuild.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = kbuild.launches()
+        count(got)
+        return out, got
+
+    # the default config at D = 1, 2, 4 against phase main's run
+    sst, sser, ssec = solo
+    for D in SHARD_COUNTS:
+        cfg = _lp_device(EngineConfig(timesteps=steps), D)
+        torch.cuda.reset_peak_memory_stats()
+        (st, ser, c, sec), got = launched(run_engine, cfg, dev)
+        bad = _run_mismatch(st, ser, sst, sser)
+        spec, _ = lp_shard.layout(cfg)
+        emit(phase="sharded", run="default", card=smi, shards=D,
+             steps=steps, slots_a_shard=spec.cap, halo_cap=spec.halo_cap,
+             mig_cap=spec.mig_cap, s_per_step=sec / steps,
+             oracle_s_per_step=ssec / steps, vs_oracle=sec / ssec,
+             peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+             halo_frac_by_100=_windows(ser["halo_frac"]),
+             lcr_by_100=_windows(ser["lcr"]),
+             bytes_on_wire=c["bytes_on_wire"],
+             mean_halo_frac=c["mean_halo_frac"],
+             shard_overflow=c["shard_overflow"],
+             migrations=c["migrations"], launches=got, mismatch=bad)
+        if bad or c["shard_overflow"] or got["proximity_grid"] != steps:
+            raise AssertionError(f"sharded default D={D}: differs from the "
+                                 f"oracle in {bad}, overflow "
+                                 f"{c['shard_overflow']}, launches {got}")
+    del st, ser, sst, sser
+
+    # synchronising calls of one Engine.step window, sharded and not
+    n = min(300, steps)
+    syncs = {}
+    for name, cfg in (("oracle", EngineConfig()),
+                      ("sharded", _lp_device(EngineConfig(), 4))):
+        eng = Engine(cfg, device=dev).init(seed=0)
+        eng.step(1)
+        with sync_count() as sc:
+            eng.step(n)
+        syncs[name] = sc["syncs"]
+    emit(phase="sharded", run="syncs", card=smi, shards=4, steps=n, **syncs)
+    if syncs["oracle"] != syncs["sharded"]:
+        raise AssertionError(f"sharded window synchronises more: {syncs}")
+
+    # exp5's full world at D = 8, and the short worlds at D = 2
+    exp5 = EngineConfig(abm=ABMConfig(**EXP5_FULL),
+                        heuristic=HeuristicConfig(mf=1.2, mt=10),
+                        timesteps=exp5_steps, mig_capacity=12_500)
+    short = [
+        ("exp5 full", exp5, 8, {"proximity_grid": exp5_steps}),
+        ("dense world", EngineConfig(
+            abm=ABMConfig(n_se=2000, area=600.0, interaction_range=250.0),
+            timesteps=steps_short), 2, {"proximity_dense": steps_short}),
+        ("epidemic", exp6_cfg("epidemic", steps_short), 2,
+         {"proximity_grid": 2 * steps_short}),
+        ("flock", exp6_cfg("flock", steps_short), 2,
+         {"cell_sums": steps_short}),
+        ("hotspot+kmeans/50", exp6_cfg("hotspot", steps_short,
+                                       partitioner="kmeans",
+                                       repartition_every=50), 2, None),
+    ]
+    for name, cfg, D, want in short:
+        (ost, oser, oc, osec), ogot = launched(run_engine, cfg, dev)
+        (st, ser, c, sec), got = launched(run_engine, _lp_device(cfg, D),
+                                          dev)
+        bad = _run_mismatch(st, ser, ost, oser)
+        want = want or {"capacity_assign": ogot["capacity_assign"]}
+        off = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        emit(phase="sharded", run=name, card=smi, shards=D,
+             n_se=cfg.abm.n_se, steps=cfg.timesteps, s_per_step=sec /
+             cfg.timesteps, oracle_s_per_step=osec / cfg.timesteps,
+             bytes_on_wire=c["bytes_on_wire"],
+             mean_halo_frac=c["mean_halo_frac"],
+             shard_overflow=c["shard_overflow"],
+             migrations=c["migrations"], repartitions=c["repartitions"],
+             launches=got, oracle_launches=ogot, mismatch=bad)
+        if bad or off or c["shard_overflow"]:
+            raise AssertionError(f"sharded {name}: differs from the oracle "
+                                 f"in {bad}, launches {off}, overflow "
+                                 f"{c['shard_overflow']}")
+        del ost, oser, st, ser
+
+    # the open world at D = 4: zero churn, exp9's churn, the queries
+    zero = EngineConfig(timesteps=steps_short, open_world=True)
+    (ost, oser, _, _), _ = launched(run_engine,
+                                    dataclasses.replace(zero,
+                                                        open_world=False),
+                                    dev)
+    (st, ser, c, _), got = launched(run_engine, _lp_device(zero, 4), dev)
+    bad = _run_mismatch(st, {k: v for k, v in ser.items() if k != "pop"},
+                        ost, oser)
+    if bad or c["mean_pop"] != zero.abm.n_se:
+        raise AssertionError(f"sharded zero churn: differs from the closed "
+                             f"world in {bad}")
+    del ost, oser, st, ser
+    n_se = zero.abm.n_se
+    cfg = _lp_device(EngineConfig(open_world=True,
+                                  n_active=n_se - CHURN_BATCH), 4)
+    area = cfg.abm.area
+    g = np.random.default_rng(0)
+    eng = Engine(cfg, device=dev).init(seed=0)
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    overflow = 0.0
+    for _ in range(churn_iters):
+        eng.depart(g.choice(eng.live_ids(), CHURN_BATCH, replace=False))
+        eng.arrive({"pos": g.uniform(0, area, (CHURN_BATCH, 2))})
+        overflow += eng.step(1)["shard_overflow"]
+    wall = time.perf_counter() - t0
+    got = kbuild.launches()
+    count(got)
+    pos, lp, gid = lp_shard.slot_universe(eng.state, cfg)
+    valid = gid >= 0
+    pop = eng.population()
+    abm, L = cfg.abm, cfg.abm.n_lp
+    lcr = eng.query_lcr()
+    counts = neighbors.dense_lp_counts(pos, lp, valid, L, area,
+                                       abm.interaction_range)
+    flows = torch.zeros((L, L), dtype=torch.int64, device=dev)
+    flows.index_add_(0, lp.clamp(0, L - 1).long(), counts.long())
+    local, tot = int(flows.trace()), int(flows.sum())
+    want_lcr = float(np.float32(local) / np.float32(max(tot, 1)))
+    p, v, ids = pos.cpu().numpy(), valid.cpu().numpy(), gid.cpu().numpy()
+    regions = {}
+    for name, (x0, y0, x1, y1) in {
+            "quadrant": (0.0, 0.0, area / 2, area / 2),
+            "seam": (area - 700.0, area - 700.0, 700.0, 700.0)}.items():
+        x, y = p[:, 0], p[:, 1]
+        inx = (x >= x0) & (x <= x1) if x0 <= x1 else (x >= x0) | (x <= x1)
+        iny = (y >= y0) & (y <= y1) if y0 <= y1 else (y >= y0) | (y <= y1)
+        regions[name] = eng.query_region((x0, y0, x1, y1)) == sorted(
+            ids[v & inx & iny].tolist())
+    q = eng.live_ids()[::max(1, pop // 64)][:64]
+    nbr = eng.query_neighbors(q)
+    slot = {int(i): s for s, i in enumerate(ids) if i >= 0}
+    qi = torch.tensor([slot[i] for i in q], device=dev)
+    rng2 = float(np.float32(abm.interaction_range * abm.interaction_range))
+    d2 = neighbors.toroidal_d2(pos[qi][:, None, :], pos[None, :, :], area,
+                               fused=False)
+    ok = valid[None, :] & (d2 <= rng2)
+    ok[torch.arange(len(q), device=dev), qi] = False
+    want_nbr = {i: sorted(ids[row].tolist())
+                for i, row in zip(q, ok.cpu().numpy())}
+    emit(phase="sharded", run="open world", card=smi, shards=4,
+         zero_churn_steps=steps_short, iters=churn_iters,
+         events_per_s=2 * CHURN_BATCH * churn_iters / wall,
+         population=pop, live_slots=int(valid.sum()),
+         shard_overflow=overflow, launches=got, query_lcr=lcr,
+         query_lcr_equal=lcr == want_lcr, regions_equal=regions,
+         query_neighbors_equal=nbr == want_nbr)
+    if pop != n_se - CHURN_BATCH or int(valid.sum()) != pop or overflow \
+            or got["proximity_grid"] != churn_iters or lcr != want_lcr \
+            or nbr != want_nbr or not all(regions.values()):
+        raise AssertionError(f"sharded open world: population {pop}, "
+                             f"overflow {overflow}, launches {got}, lcr "
+                             f"{lcr} / {want_lcr}, regions {regions}")
+    del eng, pos, lp, gid, counts, d2, ok
+
+    # R = 4 replicas at D = 2 against their solo sharded runs
+    cfg = _lp_device(EngineConfig(timesteps=steps_short), 2)
+    seeds = [0, 1, 2, 3]
+    (bst, bser, _), got = launched(
+        lambda: Engine(cfg, device=dev).run(seeds=seeds))
+    for r, seed in enumerate(seeds):
+        st, ser, _ = Engine(cfg, device=dev).run(seed=seed)
+        _held_equal("sharded batch", bst, bser, r, st, ser)
+    emit(phase="sharded", run="batch", card=smi, shards=2, replicas=4,
+         steps=steps_short, launches=got)
+    if got["proximity_grid"] != steps_short:
+        raise AssertionError(f"sharded batch: launches {got}")
+    del bst, bser, st, ser
+
+    # telemetry at D = 4: the sharded ledger columns, and the trace
+    n = min(300, steps)
+    cfg = _lp_device(EngineConfig(timesteps=0), 4)
+    on = dataclasses.replace(cfg, obs=ObsConfig(enabled=True,
+                                                drain_every=OBS_DRAIN))
+    eng = Engine(on, device=dev).init(seed=0)
+    kbuild.reset_launches()
+    eng.step(n)
+    count(kbuild.launches())
+    state = teng._init_engine(trandom.key(0), cfg, dev)
+    kbuild.reset_launches()
+    state, ser = teng._run_steps(state, cfg, n)
+    count(kbuild.launches())
+    led = eng.ledger()
+    cols = ("halo_frac", "bytes_on_wire", "shard_overflow", "lcr",
+            "migrations")
+    col_bad = [k for k in cols if not np.array_equal(
+        led.column(k), ser[k].cpu().double().numpy())]
+    rec = trace_run(on, seed=0, n_steps=5, warmup=1, device=dev)
+    spans = [e for e in rec.events if e.get("ph") == "X"]
+    phases = {e["name"] for e in spans}
+    span_bad = trace_args_mismatch(spans, cfg, dev, steps=1 + 5)
+    emit(phase="sharded", run="telemetry", card=smi, shards=4, steps=n,
+         rows=len(led), column_mismatch=col_bad, trace_spans=len(spans),
+         trace_phases=sorted(phases), trace_args_mismatch=span_bad,
+         trace_ms=[{k: v["mean"] * 1e3} for k, v in
+                   rec.phase_summary().items()])
+    eng.close()
+    if col_bad or len(led) != n or span_bad \
+            or len(spans) != 4 * len(phases) * 5:
+        raise AssertionError(f"sharded telemetry: columns {col_bad}, rows "
+                             f"{len(led)}, spans {len(spans)}, span args "
+                             f"{span_bad}")
+    del eng, state, ser
+
+    # the launcher on the card: one process holding 4 shards, nccl
+    args = ["--processes", "1", "--local-shards", "4", "--backend", "nccl"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.parallel.multihost", *args],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    wall = time.perf_counter() - t0
+    lines = [l for l in out.stdout.splitlines() if l.startswith("RESULT ")]
+    if out.returncode or not lines:
+        raise AssertionError(f"multihost exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    result = json.loads(lines[0][7:])
+    from repro_torch.parallel import multihost
+    lcfg = multihost.build_config(multihost.parser().parse_args(args))
+    eng = Engine(lcfg, device=dev).init(seed=0)
+    eng.step(lcfg.timesteps)
+    c = eng.step(lcfg.timesteps)
+    want = {"bytes_on_wire": c["bytes_on_wire"],
+            "migrations": c["migrations"],
+            "shard_overflow": c["shard_overflow"],
+            "mean_lcr": round(c["mean_lcr"], 4),
+            "mean_halo_frac": round(c["mean_halo_frac"], 4)}
+    off = {k: (result[k], v) for k, v in want.items() if result[k] != v}
+    emit(phase="sharded", run="multihost", card=smi, args=args,
+         result=result, wall_s=wall, in_process=want, mismatch=off)
+    if off or result["devices"] != 4:
+        raise AssertionError(f"multihost RESULT differs: {off}")
+    del eng
+
+    # card against CPU: rwp at 2,000 SEs, D = 2
+    area = 4472.0
+    cfg = _lp_device(exp6_cfg("rwp", steps_short, n=2000, area=area), 2)
+    gst, gser, _, _ = run_engine(cfg, dev)
+    cst, cser, _ = Engine(cfg, device="cpu").run(seed=0)
+    bad = [k for k in cser if not torch.equal(gser[k].cpu(), cser[k])]
+    ulps = float((gst["pos"].cpu() - cst["pos"]).abs().max()) / (area * ULP)
+    emit(phase="sharded", run="card vs cpu", card=smi, shards=2, n_se=2000,
+         steps=steps_short, series_mismatch=bad, max_pos_gap_area_ulps=ulps,
+         lp_equal=torch.equal(gst["lp"].cpu(), cst["lp"]))
+    if bad or ulps > 1.0 or not torch.equal(gst["lp"].cpu(), cst["lp"]):
+        raise AssertionError(f"sharded card against CPU: {bad}, {ulps} "
+                             "ULPs")
+    return total
+
+
 #: phase obs: the ledger ring's depth, and the reference's bar on the
 #: telemetry's wall overhead (benchmarks/exp10_obs.py, printed beside
 #: the port's ratio, not gated)
@@ -2085,9 +2517,10 @@ def main():
     p.add_argument("--steps", type=int, default=1200)
     p.add_argument("--dense-steps", type=int, default=200)
     p.add_argument("--scale-steps", type=int, default=20)
-    p.add_argument("--cpu-steps", type=int, default=100,
+    p.add_argument("--cpu-steps", type=int, default=50,
                    help="steps of the cpu phase's runs, its churn script "
-                        "included")
+                        "included, and of phase obs's card-against-CPU "
+                        "ledger")
     p.add_argument("--epi-steps", type=int, default=1200,
                    help="steps of the scenarios phase's epidemic run")
     p.add_argument("--scenario-steps", type=int, default=300,
@@ -2100,6 +2533,13 @@ def main():
                    help="iterations of the service phase's churn loop")
     p.add_argument("--service-requests", type=int, default=12,
                    help="requests of the service phase's ReplicaService")
+    p.add_argument("--exp5-steps", type=int, default=300,
+                   help="steps of the sharded phase's exp5 full world")
+    p.add_argument("--shard-steps", type=int, default=100,
+                   help="steps of the sharded phase's other worlds")
+    p.add_argument("--shard-churn", type=int, default=40,
+                   help="churn iterations of the sharded phase's open "
+                        "world")
     p.add_argument("--gen", type=int, default=64,
                    help="decode steps of the serve phase")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -2147,7 +2587,9 @@ def main():
                        check_grid(10_000, 10_000.0, 250.0, 50, dev,
                                   dead=2_000),
                        check_grid(10_000, 10_000.0, 250.0, 51, dev,
-                                  replicas=4, dead=2_000)],
+                                  replicas=4, dead=2_000),
+                       check_grid(10_000, 10_000.0, 250.0, 0, dev,
+                                  layout="sharded", replicas=4)],
               "dense": [check_dense(2_000, 600.0, 250.0, 3, dev),
                         check_dense(10_000, 10_000.0, 250.0, 4, dev),
                         check_dense(10_000, 10_000.0, 250.0, 8, dev,
@@ -2172,6 +2614,9 @@ def main():
     replica_launches = timed("replicas", replicas, a.steps,
                              a.replica_scenario_steps, a.tune_steps, solo,
                              dev)
+    sharded_launches = timed("sharded", sharded, a.steps, a.exp5_steps,
+                             a.shard_steps, a.shard_churn, solo,
+                             smi, dev)
     del solo
     scenario_launches = timed("scenarios", scenarios, a.epi_steps,
                               a.scenario_steps, dev)
@@ -2224,6 +2669,7 @@ def main():
             "replicas_launches": replica_launches.get(stem, 0),
             "service_launches": service_launches.get(stem, 0),
             "obs_launches": obs_launches.get(stem, 0),
+            "sharded_launches": sharded_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -441,6 +441,21 @@ def mobility_row_apply(pos, waypoint, mob, draws, cfg: ABMConfig):
     return _group_apply(pos, target, draws["noise"], cfg), waypoint
 
 
+def max_step_displacement(cfg: ABMConfig) -> float:
+    """Upper bound on any SE's per-axis displacement in one mobility
+    step, which sizes the sharded halo's dilation radius
+    (`repro_torch.parallel.lp_shard`). rwp and flock move exactly
+    `speed` along a unit direction; hotspot adds up to 0.5 * speed of
+    per-axis noise to a speed-capped pull, group up to 0.25 * speed to
+    a speed-capped chase; trace measures its frames (the `loop` policy
+    also pays for the wrap-seam jump)."""
+    if cfg.mobility == "trace":
+        return trace_frames(cfg).max_step_displacement(
+            include_seam=cfg.trace_policy == "loop")
+    return {"rwp": cfg.speed, "hotspot": 1.5 * cfg.speed,
+            "group": 1.25 * cfg.speed, "flock": cfg.speed}[cfg.mobility]
+
+
 def _flock_step(k_noise, pos, mob, cfg: ABMConfig, valid=None):
     """Flocking-lite over the cell-list grid: steer by inertia +
     alignment with the 3x3-neighborhood mean heading + cohesion toward

@@ -92,11 +92,6 @@ SHARDINGS = ("none", "lp_device")
 #: k_move
 REPART_SALT = 0x7a47
 
-#: the ROADMAP.md items that bring what the port does not run yet
-LATER = {
-    "sharding": "ROADMAP.md queue 1, item 10 (parallel/lp_shard.py)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -165,11 +160,6 @@ class EngineConfig:
                 "open_world=True needs proximity_backend 'grid' or "
                 "'dense' (the Pallas kernels table every row and have "
                 "no dead-slot mask)")
-        # valid, but for a later slice of the port
-        if self.sharding == "lp_device":
-            raise NotImplementedError(
-                "EngineConfig with sharding='lp_device' is not ported "
-                f"yet; see {LATER['sharding']}")
 
     def effective_capacity(self) -> Optional[tuple]:
         """Asymmetric capacity shares: explicit `capacity` wins, else the
@@ -200,7 +190,13 @@ def strip_obs(cfg: EngineConfig) -> EngineConfig:
 def _init_engine(key, cfg: EngineConfig, device):
     """The engine state at t = 0 from a key (see `random.key`). An open
     world's slots [initial_live, n_se) start free (lp = -1); the draws
-    are the closed world's, so the live prefix is its rows."""
+    are the closed world's, so the live prefix is its rows. Under
+    sharding="lp_device" the state is this process's shards
+    (`parallel.lp_shard.init_sharded`)."""
+    if cfg.sharding == "lp_device":
+        from repro_torch.parallel import lp_shard
+        spec, mesh = lp_shard.layout(cfg)
+        return lp_shard.init_sharded(key, cfg, spec, device, mesh)
     k1, k2 = trandom.split(key)
     st = init_abm(k1, cfg.abm, device)
     n, L = cfg.abm.n_se, cfg.abm.n_lp
@@ -503,7 +499,11 @@ def step(state, cfg: EngineConfig, mf=None, tv=None, active=None):
     tensor on the state's device, or one value for all). `tv` is
     `steps_on(state["t"], device)` when the caller has it; `active`
     (a batch: R host bools, None for all) names the replicas whose
-    repartitions run."""
+    repartitions run. Under sharding="lp_device" the state is sharded
+    (`parallel.lp_shard.step_sharded`)."""
+    if cfg.sharding == "lp_device":
+        from repro_torch.parallel import lp_shard
+        return lp_shard.step_sharded(state, cfg, mf, tv, active)
     px = {"st": state, "mf": mf, "active": active}
     if tv is not None:
         px["tv"] = tv
@@ -554,14 +554,37 @@ def oracle_depart(state, ids):
     return _clear_slot_history(st, ids)
 
 
+def host_series(series) -> dict:
+    """A series dict on the host, copied off the device in one transfer
+    (one synchronising call, however many keys): every tensor's bytes
+    go into one buffer."""
+    dev = next(iter(series.values())).device
+    if dev.type == "cpu":
+        return dict(series)
+    parts, spans, at = [], [], 0
+    for v in series.values():
+        b = v.contiguous().view(-1).view(torch.uint8)
+        pad = -b.numel() % 8  # every part starts 8-byte aligned
+        parts += [b, b.new_zeros(pad)]
+        spans.append((at, b.numel()))
+        at += b.numel() + pad
+    host = torch.cat(parts).cpu()
+    return {k: host[a:a + nb].view(v.dtype).view(v.shape)
+            for (k, v), (a, nb) in zip(series.items(), spans)}
+
+
 def series_counters(series) -> dict:
     """Aggregate a per-step metrics series into run counters (host
     floats; the flow matrices as nested int64 lists). Reads the series
-    off the device once. The counts are summed in float64: each step's
-    float32 count is an exact integer, so the total is exact however a
-    run is cut into windows (a float32 sum rounds once it passes 2**24,
-    as a full-width hotspot run's messages do within ten steps)."""
-    series = {k: v.cpu() for k, v in series.items()}
+    off the device once (`host_series`). The counts are summed in
+    float64: each step's float32 count is an exact integer, so the total
+    is exact however a run is cut into windows (a float32 sum rounds
+    once it passes 2**24, as a full-width hotspot run's messages do
+    within ten steps). A sharded series (one that carries `wire_flows`)
+    has no grid_overflow (its `shard_overflow` covers the views' grids)
+    and adds the mean halo_frac, the steps with shard_overflow,
+    bytes_on_wire and the summed wire_flows (int64)."""
+    series = host_series(series)
     counters = {k: float(series[k].double().sum()) for k in
                 ("local_msgs", "remote_msgs", "migrations", "heu_evals")}
     counters["mean_lcr"] = float(series["lcr"].mean())
@@ -571,9 +594,17 @@ def series_counters(series) -> dict:
         counters["mean_infected"] = float(series["infected"].mean())
         counters["final_infected"] = float(series["infected"][-1])
     for k in ("grid_overflow", "repartitions"):
-        counters[k] = float(series[k].double().sum())
+        if k in series:
+            counters[k] = float(series[k].double().sum())
     for k in ("lp_flows", "mig_flows"):
         counters[k] = series[k].numpy().sum(axis=0, dtype=np.int64).tolist()
+    if "wire_flows" in series:
+        counters["mean_halo_frac"] = float(series["halo_frac"].mean())
+        counters["shard_overflow"] = float(
+            series["shard_overflow"].double().sum())
+        wf = series["wire_flows"].numpy().astype(np.int64)
+        counters["bytes_on_wire"] = float(wf.sum())
+        counters["wire_flows"] = wf.sum(axis=0).tolist()
     return counters
 
 
@@ -623,13 +654,25 @@ def _migration_ratio(counters, cfg: EngineConfig) -> float:
 
 def _run(key, cfg: EngineConfig, device):
     """Run the full simulation; returns (final_state, stacked metrics,
-    aggregate counters)."""
+    aggregate counters). Sharded, the final state is unsharded to id
+    order (the oracle's layout)."""
     check_trace_horizon(cfg.abm, 0, cfg.timesteps)
     st = _init_engine(key, cfg, device)
     st, series = _run_steps(st, cfg, cfg.timesteps)
     counters = series_counters(series)
     counters["migration_ratio"] = _migration_ratio(counters, cfg)
-    return st, series, counters
+    return _unshard(st, cfg), series, counters
+
+
+def _unshard(state, cfg: EngineConfig, batch: bool = False):
+    """A sharded run's final state in id order (the oracle's layout);
+    any other state as it is."""
+    if cfg.sharding != "lp_device":
+        return state
+    from repro_torch.parallel import lp_shard
+    spec, mesh = lp_shard.layout(cfg)
+    return (lp_shard.unshard_batch if batch else lp_shard.unshard_state)(
+        state, spec, mesh)
 
 
 def state_from_numpy(arrays, device):
@@ -719,9 +762,9 @@ def replica_series(series, r: int):
 
 
 def _batch_counters(series, n_rep: int):
-    """One counters dict per replica, from one copy of the series off
-    the device."""
-    host = {k: v.cpu() for k, v in series.items()}
+    """One `series_counters` dict per replica, from one copy of the
+    series off the device."""
+    host = host_series(series)
     return [series_counters(replica_series(host, r)) for r in range(n_rep)]
 
 
@@ -750,4 +793,4 @@ def _run_batch(cfg: EngineConfig, seeds, device):
     reps = _batch_counters(series, len(seeds))
     for c in reps:
         c["migration_ratio"] = _migration_ratio(c, cfg)
-    return states, series, reps
+    return _unshard(states, cfg, batch=True), series, reps

@@ -1,11 +1,12 @@
 """Spatial-grid (cell-list) neighbor search on the toroidal square.
 
-The port of `repro.core.neighbors`, without the sharded helpers: the
-grid geometry and capacity math (uniform and clustered), the binning,
-the CSR grid build (with the open world's dead rows binned out of it),
-the plain PyTorch sweeps that count, for each sender, the recipients on
-each LP within range, the service's neighbour query, and the flock's
-3x3 block means. On the card the engine does not run these
+The port of `repro.core.neighbors`: the grid geometry and capacity
+math (uniform and clustered), the binning, the CSR grid build (with the
+open world's dead rows binned out of it), the plain PyTorch sweeps that
+count, for each sender, the recipients on each LP within range (over
+every row, or a row subset against a gathered world), the service's
+neighbour query, the flock's 3x3 block means, and the sharded halo's
+cell masks (`halo_mask`, `dilate_mask`). On the card the engine does not run these
 sweeps: it hands the grid to the hand-written kernels in
 `repro_torch.kernels.proximity` (whose plain versions delegate here)
 and `repro_torch.kernels.cell_sums`.
@@ -89,17 +90,28 @@ def dense_lp_counts(pos, lp, sender_mask, n_lp: int, area: float,
         return torch.stack([
             dense_lp_counts(p, l, s, n_lp, area, rng, chunk)
             for p, l, s in zip(pos, lp, sender_mask)])
-    n = pos.shape[0]
-    dev = pos.device
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows_dense_counts(pos, lp, n_lp, area, rng, pos, rows,
+                             sender_mask, chunk)
+
+
+def rows_dense_counts(pos, lp, n_lp: int, area: float, rng: float,
+                      row_pos, row_idx, row_sender, chunk: int = 2048):
+    """Dense-sweep counts (R, n_lp) int32 for a row subset against the
+    reference arrays `pos` / `lp` (the sharded engine's dense fallback
+    asks its own rows against the gathered world). `row_idx` is each
+    row's index into `pos`, left out of its own count; entries with
+    lp < 0 (empty shard slots) match no LP."""
     rng2 = f32(rng * rng)
-    cols = torch.arange(n, device=dev)
-    out = torch.zeros((n, n_lp), dtype=torch.int32, device=dev)
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        mask = toroidal_d2(pos[s:e, None, :], pos[None, :, :], area) <= rng2
-        mask &= cols[None, :] != cols[s:e, None]
-        mask &= sender_mask[s:e, None]
-        out[s:e] = _histogram(mask, lp[None, :], n_lp)
+    cols = torch.arange(pos.shape[0], device=pos.device)
+    out = torch.zeros((row_pos.shape[0], n_lp), dtype=torch.int32,
+                      device=pos.device)
+    for s in range(0, row_pos.shape[0], chunk):
+        rp, ri = row_pos[s:s + chunk], row_idx[s:s + chunk]
+        mask = toroidal_d2(rp[:, None, :], pos[None, :, :], area) <= rng2
+        mask &= cols[None, :] != ri[:, None]
+        mask &= row_sender[s:s + chunk, None]
+        out[s:s + chunk] = _histogram(mask, lp[None, :], n_lp)
     return out
 
 
@@ -303,6 +315,44 @@ def grid_lp_counts(pos, lp, sender_mask, n_lp: int, area: float, rng: float,
     """Cell-list version of the dense LP histogram (bit-identical)."""
     return grid_lp_counts_from(pos, lp, sender_mask, n_lp, area, rng, spec,
                                build_grid(pos, spec), budget_entries)
+
+
+def occupied(cell, valid, ncells: int):
+    """(..., ncells) bool: the cells holding a valid row, from (..., N)
+    cell ids (`valid` rows only)."""
+    occ = torch.zeros(cell.shape[:-1] + (ncells + 1,), dtype=torch.bool,
+                      device=cell.device)
+    occ.scatter_(-1, torch.where(valid, cell, ncells).long(), True)
+    return occ[..., :ncells]
+
+
+def halo_mask(cell_ref, row_cell, row_valid, spec: GridSpec):
+    """Which reference agents lie in the halo of a row set: a bool mask
+    over `cell_ref` (per-agent cell ids), True for the agents in the 3x3
+    neighbourhood of a cell a valid row occupies. This is the exact
+    halo of a shard, the set `halo_frac` counts (the sparse exchange
+    ships a dilated superset of it). Leading axes are row sets of their
+    own (a shard's view each)."""
+    nc = spec.ncell
+    lead = row_cell.shape[:-1]
+    occ = occupied(row_cell, row_valid, nc * nc).view(lead + (nc, nc))
+    return dilate_mask(occ, 1).view(lead + (nc * nc,)).gather(
+        -1, cell_ref.long())
+
+
+def dilate_mask(occ, r: int):
+    """Chebyshev dilation by radius r of a bool cell mask (..., ncell,
+    ncell) on the torus: out[i, j] is True iff a cell within r rows and
+    r columns (wrapping) is True. r = 1 is the 3x3 block the proximity
+    sweep reads. Separable (rows, then columns); when 2r + 1 >= ncell
+    the roll chain wraps all the way and an occupied axis saturates."""
+    out = occ
+    for axis in (-2, -1):
+        acc = out
+        for s in range(1, r + 1):
+            acc = acc | torch.roll(out, s, axis) | torch.roll(out, -s, axis)
+        out = acc
+    return out
 
 
 def cell_block_mean(pos, vec, spec: GridSpec, area: float, valid=None):

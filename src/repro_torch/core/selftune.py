@@ -90,7 +90,8 @@ def intra_run_tune(key, cfg: EngineConfig, tc: SelfTuneConfig,
                    total_steps: Optional[int] = None, device=None):
     """Run `cfg` from `key` (`random.key(seed)`) with MF hill-descended
     every `window` steps. Returns (final_state, history), history rows
-    (window_index, mf, window_lcr, window_tec_per_step)."""
+    (window_index, mf, window_lcr, window_tec_per_step); a sharded run's
+    state is unsharded to id order, as `engine._run` returns it."""
     total = total_steps or cfg.timesteps
     params = SETUPS[tc.setup]
     state = _init_engine(key, cfg, resolve_device(device))
@@ -105,6 +106,10 @@ def intra_run_tune(key, cfg: EngineConfig, tc: SelfTuneConfig,
             obs_runtime.emit_event("tuner_move", (w + 1) * tc.window,
                                    mf=tuner.mf, prev_mf=prev_mf, window=w,
                                    tec_per_step=tuner.history[-1][3])
+    if cfg.sharding == "lp_device":  # the oracle's id-order layout
+        from repro_torch.parallel import lp_shard
+        spec, mesh = lp_shard.layout(cfg)
+        state = lp_shard.unshard_state(state, spec, mesh)
     return state, tuner.history
 
 
@@ -123,6 +128,10 @@ def intra_run_tune_batch(cfg: EngineConfig, tc: SelfTuneConfig, seeds,
                                          mf=[t.mf for t in tuners])
         for tuner, counters in zip(tuners, reps):
             tuner.observe(w, counters, params, cfg)
+    if cfg.sharding == "lp_device":
+        from repro_torch.parallel import lp_shard
+        spec, mesh = lp_shard.layout(cfg)
+        states = lp_shard.unshard_batch(states, spec, mesh)
     return states, [t.history for t in tuners]
 
 

@@ -25,6 +25,12 @@ counters dict per replica.
   cell list as a read-only index, or a dense sweep in worlds too small
   to tessellate), `query_lcr` (the proximity kernel with every live SE
   a sender) and `query_region` (a wrap-aware box).
+- **Sharded** (`sharding="lp_device"`): the state is slot-major, the
+  churn goes through `parallel.lp_shard.arrive_sharded` /
+  `depart_sharded` (an arrival whose shard has no free slot raises,
+  naming shard_capacity, with the admitted rest applied), and the
+  queries read the slot universe with each slot's SE id (`gid`),
+  without unsharding.
 - `ReplicaService`: continuous batching of requests over the replica
   axis. A finished slot is refilled at t = 0 while the others go on at
   their own steps; each request's counters are its solo run's.
@@ -261,8 +267,24 @@ class Engine:
         if "epi" in rows:
             trows["epi"] = _on(np.asarray(rows["epi"]).reshape(-1),
                                np.int32, dev)
-        self.state = _eng.oracle_arrive(self.state,
-                                        _on(ids, np.int64, dev), trows)
+        if self.cfg.sharding == "lp_device":
+            from repro_torch.parallel import lp_shard
+            self.state, adm = lp_shard.arrive_sharded(
+                self.state, self.cfg, _on(ids, np.int32, dev), trows)
+            adm = adm.cpu().numpy()
+            if not adm.all():
+                refused = [i for i, ok in zip(ids, adm) if not ok]
+                self._free.extend(reversed(refused))
+                admitted = [i for i, ok in zip(ids, adm) if ok]
+                self._live.update(admitted)
+                raise RuntimeError(
+                    f"arrive: {len(refused)} of {b} arrivals refused: "
+                    "their destination devices have no free slot; raise "
+                    "EngineConfig.shard_capacity (admitted: "
+                    f"{len(admitted)} rows, already applied)")
+        else:
+            self.state = _eng.oracle_arrive(self.state,
+                                            _on(ids, np.int64, dev), trows)
         self._live.update(ids)
         if self.telemetry is not None:
             self.telemetry.emit("arrive", self._steps, count=b,
@@ -282,8 +304,17 @@ class Engine:
             raise KeyError(
                 f"depart: not live (or duplicated in batch): "
                 f"{sorted(set(missing or ids))[:8]}")
-        self.state = _eng.oracle_depart(
-            self.state, _on(ids, np.int64, self.device))
+        if self.cfg.sharding == "lp_device":
+            from repro_torch.parallel import lp_shard
+            self.state, found = lp_shard.depart_sharded(
+                self.state, self.cfg, _on(ids, np.int32, self.device))
+            if not bool(found.all()):
+                raise RuntimeError(
+                    "depart: live-set bookkeeping and device state "
+                    "disagree: some ids were not found in any slot")
+        else:
+            self.state = _eng.oracle_depart(
+                self.state, _on(ids, np.int64, self.device))
         self._live.difference_update(ids)
         self._free.extend(reversed(ids))
         if self.telemetry is not None:
@@ -293,9 +324,15 @@ class Engine:
     # -- device-state queries -------------------------------------------
 
     def _universe(self):
-        """(pos, lp, ext, valid) of the slot universe, in id order (ext
-        is the slot's SE id)."""
+        """(pos, lp, ext, valid) of the slot universe (ext is the slot's
+        SE id): id order for the oracle, slot-major for the sharded
+        layer (ext = gid, every shard's slots). Queries never
+        unshard."""
         st = self.state
+        if self.cfg.sharding == "lp_device":
+            from repro_torch.parallel import lp_shard
+            pos, lp, gid = lp_shard.slot_universe(st, self.cfg)
+            return pos, lp, gid.long(), gid >= 0
         n = self.cfg.abm.n_se
         ext = torch.arange(n, dtype=torch.int64, device=self.device)
         return st["pos"], st["lp"], ext, st["lp"] >= 0
@@ -314,7 +351,10 @@ class Engine:
             return {}
         abm = self.cfg.abm
         pos, lp, ext, valid = self._universe()
-        rows = _on(ids, np.int64, self.device)
+        q = _on(ids, np.int64, self.device)
+        # each queried SE's slot (its id, for the oracle)
+        rows = q if self.cfg.sharding == "none" else \
+            (ext[None, :] == q[:, None]).int().argmax(1)
         qpos = pos[rows]
         spec = abm.grid_spec() if abm.proximity_backend in (
             "grid", "pallas_grid") else None
@@ -327,10 +367,12 @@ class Engine:
             d2 = neighbors.toroidal_d2(qpos[:, None, :], pos[None, :, :],
                                        abm.area, fused=False)
             rng = abm.interaction_range
+            j = torch.arange(pos.shape[0], device=self.device)
             ok = valid[None, :] & (d2 <= f32(rng * rng)) \
-                & (ext[None, :] != rows[:, None])
-            cols = torch.where(ok, ext[None, :], -1)
-        nbr = cols.cpu().numpy()
+                & (j[None, :] != rows[:, None])
+            cols = torch.where(ok, j[None, :], -1)
+        nbr = torch.where(cols >= 0, ext[cols.clamp(min=0)], -1)
+        nbr = nbr.cpu().numpy()
         return {i: sorted(int(x) for x in row if x >= 0)
                 for i, row in zip(ids, nbr)}
 

@@ -66,12 +66,14 @@ def ledger_row(cfg, state, metrics, t):
     state and the step's metrics, on the state's device, without a host
     sync: the stamp is filled from the scalar (no host-to-device copy),
     the counters are the step's own, and the per-LP load is a
-    compare-and-sum over a fixed (N, L) mask (a dead slot, lp < 0,
-    matches no LP; `torch.bincount` on the card would read its input's
-    maximum back to the host)."""
+    compare-and-sum over a fixed (slots, L) mask (a free slot, oracle
+    lp < 0 or sharded gid < 0, matches no LP; `torch.bincount` on the
+    card would read its input's maximum back to the host)."""
     lp = state["lp"]
+    if "gid" in state:  # sharded: every local shard's slots
+        lp = torch.where(state["gid"] < 0, -1, lp)
     lps = torch.arange(cfg.abm.n_lp, dtype=lp.dtype, device=lp.device)
-    load = (lp[:, None] == lps).sum(0, dtype=torch.float32)
+    load = (lp.reshape(-1, 1) == lps).sum(0, dtype=torch.float32)
     cols = [torch.full((), t, dtype=torch.float32, device=lp.device)]
     for k in ledger_keys(cfg)[1:]:
         if k.startswith("lp_load_"):

@@ -2,7 +2,8 @@
 port of `repro.obs.trace`).
 
 The trace executor runs a window phase by phase: each phase of
-`engine.step_phases` is called in turn and timed on the host around a
+`engine.step_phases` (or, sharded, `parallel.lp_shard.sharded_phases`)
+is called in turn and timed on the host around a
 `torch.cuda.synchronize()` (the device runs asynchronously; on the CPU
 the phase is done when it returns). The recorder emits one complete
 span ("ph": "X") per (device, phase, step) in the Chrome trace-event
@@ -10,7 +11,10 @@ format, which chrome://tracing and https://ui.perfetto.dev open.
 
 The port's step is these very phases run in turn (`engine.step`), so a
 traced run is bit for bit the untraced one; its spans include the
-synchronise after each phase, which the untraced loop never makes.
+synchronise after each phase, which the untraced loop never makes. A
+sharded run has one timeline row a shard: each span is replicated onto
+every row, with the shard's own counters of that point of the step
+(`n_valid`, `halo_n`) in its args.
 
 This module imports the engine lazily (function-local): the engine
 imports `repro_torch.obs` submodules.
@@ -77,11 +81,15 @@ class TraceRecorder:
                 for k, v in acc.items()}
 
 
-def _refuse_sharded(cfg) -> None:
-    from repro_torch.core.engine import LATER
-    if cfg.sharding == "lp_device":
-        raise NotImplementedError("the sharded trace is not ported yet; "
-                                  f"see {LATER['sharding']}")
+def _dev_args(px, n_dev: int) -> list:
+    """Per-shard span payload: the per-shard counters the phase context
+    holds at this point of the step (read off the device)."""
+    out = [dict() for _ in range(n_dev)]
+    for key in ("n_valid", "halo_n"):
+        if key in px:
+            for d, v in enumerate(px[key].reshape(-1).tolist()):
+                out[d][key] = int(v)
+    return out
 
 
 def trace_steps(state, cfg, n_steps: int, recorder: TraceRecorder,
@@ -90,10 +98,15 @@ def trace_steps(state, cfg, n_steps: int, recorder: TraceRecorder,
     recording one span per (device, phase, step) for the last `n_steps`
     (the warm-up steps absorb first-call costs: kernel loads, allocator
     growth). Returns the advanced state, bit for bit what
-    `engine._run_steps` returns."""
+    `engine._run_steps` returns. A sharded state (one replica) records
+    one row a shard, with per-shard args."""
     from repro_torch.core.engine import step_phases
-    _refuse_sharded(cfg)
-    phases = step_phases(cfg)
+    sharded = cfg.sharding == "lp_device"
+    if sharded:
+        from repro_torch.parallel import lp_shard
+        phases = lp_shard.sharded_phases(cfg)
+    else:
+        phases = step_phases(cfg)
     mf = cfg.heuristic.mf if mf is None else float(mf)
     dev = state["lp"].device
 
@@ -110,7 +123,9 @@ def trace_steps(state, cfg, n_steps: int, recorder: TraceRecorder,
             px = fn(px)
             sync()
             if record:
-                recorder.add_span(name, step_no, t0, time.perf_counter())
+                recorder.add_span(name, step_no, t0, time.perf_counter(),
+                                  dev_args=_dev_args(px, recorder.n_dev)
+                                  if sharded else None)
         state = px["new_state"]
     return state
 
@@ -125,10 +140,13 @@ def trace_run(cfg, seed: int = 0, n_steps: Optional[int] = None,
     from repro_torch.core.engine import _init_engine
     from repro_torch.core.service import resolve_device
 
-    _refuse_sharded(cfg)
     if n_steps is None:
         n_steps = cfg.timesteps
     state = _init_engine(trandom.key(seed), cfg, resolve_device(device))
-    recorder = TraceRecorder(n_dev=1)
+    n_dev = 1
+    if cfg.sharding == "lp_device":
+        from repro_torch.parallel import lp_shard
+        n_dev = lp_shard.layout(cfg)[1].local
+    recorder = TraceRecorder(n_dev=n_dev)
     trace_steps(state, cfg, n_steps, recorder, warmup=warmup)
     return recorder

@@ -434,9 +434,25 @@ def test_trace_spans_equal_reference(ref, variant):
 
 
 def test_sharded_trace_names_item_10(ref):
+    """The sharded trace (queue 1 item 10, which this test once expected
+    to raise): one row a shard, the reference's phases and per-shard
+    args, and the traced state the fused run's."""
     rc = _cfg(ref.core, ref.obs, sharding="lp_device", n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TO.trace_steps({}, rc, 1, TO.TraceRecorder())
+    cfg = _port(sharding="lp_device", n_devices=2)
+    want = ref.obs.trace_run(rc, seed=5, n_steps=2, warmup=1)
+    rec = TO.trace_run(cfg, seed=5, n_steps=2, warmup=1, device="cpu")
+    spans = [(e["name"], e["tid"], e["args"]) for e in rec.events
+             if e["ph"] == "X"]
+    assert spans == [(e["name"], e["tid"], e["args"])
+                     for e in want.events if e["ph"] == "X"]
+    assert {a["n_valid"] for _, _, a in spans} and rec.n_dev == 2
+    start = teng._init_engine(trandom.key(5), cfg, CPU)
+    traced = TO.trace_steps(start, cfg, 3, TO.TraceRecorder(n_dev=2),
+                            warmup=1)
+    fused, _ = teng._run_steps(start, cfg, 4)
+    for k in fused:
+        if k != "t":
+            assert torch.equal(traced[k], fused[k]), k
 
 
 # --- the card ---------------------------------------------------------------
