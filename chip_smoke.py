@@ -6,7 +6,7 @@ Phases, each of which raises on failure (so the script exits non-zero
 and prints no result):
 
   1. card     the GPU's name and power limit (nvidia-smi), torch, CUDA
-  2. build    the seven kernels built from the checkout's sources, with
+  2. build    the nine kernels built from the checkout's sources, with
               nvcc's -Xptxas -v figures (registers, shared memory,
               spills) of every kernel
   3. kernels  each kernel held against its plain PyTorch version on the
@@ -131,6 +131,29 @@ and prints no result):
               route alike agree within the bf16 tolerance)
   9. serve_cpu the smoke config on the card against the port on the CPU,
               teacher-forced (logits within the bf16 tolerance)
+ 10. train    the training path: the flash-attention backward (with the
+              forward's row log-sum-exp) at tinyllama-1.1b's and
+              qwen2-7b's shapes and in float32, and the gate's backward
+              and probability-mean forward, against autograd through the
+              plain versions (calls in a row bit-equal; library:
+              autograd through PyTorch's fused attention);
+              tinyllama-1.1b at full width and depth through
+              `launch.train`'s Trainer (8 x 4,096 tokens a step in 4
+              microbatches, AdamW, remat, chunked loss, 6 steps, an
+              async checkpoint at step 3; s/step, tokens/s, the
+              model-FLOPs share, peak memory, launches a step), then
+              from that checkpoint a run killed after step 4 and a
+              restart, bit for bit the first run; qwen3-moe-30b-a3b at
+              full width cut to 2 layers (expert counts sum to T k,
+              router_bias moves by +-1e-3, a restart from its state
+              after step 2 bit for bit); one float32 step of the two
+              smokes on the card against the CPU (a REPRO_FORCE_F32=1
+              subprocess). One 15.4 GB checkpoint is written: the card
+              machine takes ~45 GiB of disk writes a call
+ 11. dense_serve qwen2-7b at full width and depth (28 layers, a group
+              of 7 at D 128, QKV bias) serving 4 x 512 prompts and 16
+              greedy steps, then every layer through the kernels and
+              through the plain versions
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -159,7 +182,8 @@ untraced and 8 traced decode steps.
         --shard-steps 20 --shard-churn 5
 
 is a shake-out run that cuts every phase short (--gen sets the serve
-phase's decode steps).
+phase's decode steps) but phases train and dense_serve
+(`--train-steps`, `--train-moe-steps`, `--dense-gen` cut those).
 """
 from __future__ import annotations
 
@@ -167,6 +191,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -242,15 +267,18 @@ def time_ms(fn, reps: int = 20, batch: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5):
+def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5,
+                   expect: int = 0):
     """(ms, kernels per call, names) of the CUDA kernels whose names hold
     `kernel` (every kernel when None), per call of fn(), over `calls`
     calls (torch.profiler); ms is None when none ran.
 
     Every call issues the same kernels, so a count that is not a whole
-    multiple of `calls` means the trace lost records (seen once in 19 of
-    20 moe_gate launches): the calls are traced again, up to `tries`
-    times in all, and the last trace is returned."""
+    multiple of `calls` (or, given `expect`, not `expect` a call) means
+    the trace lost records (seen once in 19 of 20 moe_gate launches, and
+    for two thirds of the attention backward's launches): the calls are
+    traced again, up to `tries` times in all, and the last trace is
+    returned."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -263,7 +291,7 @@ def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5):
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and (kernel is None or kernel in e.name)]
-        if len(ev) % calls == 0:
+        if len(ev) == expect * calls if expect else len(ev) % calls == 0:
             break
     ms = sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
     return (ms if ev else None), len(ev) / calls, sorted(
@@ -950,9 +978,16 @@ class _Agreement:
         self.errs, self.flips, self.rows = [], 0, 0
 
     def add(self, got, want, picks_got, picks_want):
+        """picks: the layer's expert ids through each version (None for
+        a dense layer: no row can route differently)."""
         g = got.reshape(-1, got.shape[-1]).float()
         w = want.reshape(-1, want.shape[-1]).float()
-        flip = (picks_got.sort(1).values != picks_want.sort(1).values).any(1)
+        if picks_got is None:
+            flip = torch.zeros(g.shape[0], dtype=torch.bool,
+                               device=g.device)
+        else:
+            flip = (picks_got.sort(1).values
+                    != picks_want.sort(1).values).any(1)
         err = (g - w).abs().amax(-1) / g.abs().max()
         self.errs.append(err[~flip])
         self.flips += int(flip.sum())
@@ -989,7 +1024,8 @@ def layerwise_vs_plain(cfg, seed, prompts, tokens, dev):
             out_k = fn(False)
         with _gates(True, pp):
             out_p = fn(True)
-        agree[kind].add(out_k[0], out_p[0], pk[0], pp[0])
+        agree[kind].add(out_k[0], out_p[0], pk[0] if pk else None,
+                        pp[0] if pp else None)
         return out_k, out_p
 
     def logit_err(hk, hp):
@@ -1001,10 +1037,15 @@ def layerwise_vs_plain(cfg, seed, prompts, tokens, dev):
 
     x = embed_fwd(params["embed"], prompts)
     kvs, logit_errs = [], []
+    def kwargs(i):
+        if cfg.moe is None:
+            return dict(cfg=cfg)
+        return dict(cfg=cfg, router_bias=extras["router_bias"][i],
+                    placement=extras["placement"][i])
+
     for i in range(L):
         lay = lm.layer(params["layers"], i)
-        kw = dict(cfg=cfg, router_bias=extras["router_bias"][i],
-                  placement=extras["placement"][i])
+        kw = kwargs(i)
         (x, kv, _), (xp, _, _) = both(
             "prefill", lambda plain: blocks.tf_block_fwd(
                 lay, x, return_kv=True, **kw))
@@ -1018,8 +1059,7 @@ def layerwise_vs_plain(cfg, seed, prompts, tokens, dev):
         x = embed_fwd(params["embed"], tokens[:, step, None])
         for i in range(L):
             lay = lm.layer(params["layers"], i)
-            kw = dict(cfg=cfg, router_bias=extras["router_bias"][i],
-                      placement=extras["placement"][i])
+            kw = kwargs(i)
             c = lm.layer(cache["main"], i)
             twin = {k: t.clone() for k, t in c.items()}
             (x, _), (xp, _) = both(
@@ -1189,6 +1229,531 @@ def profile_serve(steps: int, dev):
             tok, pos = argmax_first(lg), pos + 1
         torch.cuda.synchronize()
     summarize(prof, steps, wall, "decode")
+
+
+# ---------------------------------------------------------------------------
+# Phase train: the training path's kernels, tinyllama-1.1b at full width
+# and depth through the Trainer, qwen3-moe-30b-a3b at full width and cut
+# depth, and one float32 step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: phase train's runs: train_4k's sequence; its global batch of 256 cut
+#: to 8 rows in 4 microbatches (the MoE run: 4 rows in 2, 2 layers)
+TRAIN = dict(arch="tinyllama-1.1b", seq=4096, batch=8, microbatches=4,
+             loss_chunk=1024, checkpoint_every=3, fail_at=4)
+TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", layers=2, seq=4096, batch=4,
+                 microbatches=2, loss_chunk=1024, checkpoint_every=1000)
+#: the float32 step of the smoke configs, card against CPU
+#: (tests/test_torch_train.py's tolerances): the loss and lr within
+#: TRAIN_F32_TOL relative, params within it absolute, the grad norm
+#: within TRAIN_GRAD_TOL relative (the gradients' own tolerance: the
+#: first layer's rmsnorm divides by the embedding's RMS, ~0.02, so its
+#: input gradient is a difference of large terms), router_bias exact
+TRAIN_F32_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+
+
+def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
+    """The backward kernel (and the forward's row log-sum-exp) against
+    autograd through the plain version in float32 on the same inputs:
+    each gradient within ATTN_TOL of its largest |value|; two calls
+    bit-equal. The library call is autograd through PyTorch's fused
+    attention (its backward alone, on a kept graph)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    F = torch.nn.functional
+    q = _randn((B, H, S, D), 11, dev, dtype)
+    k = _randn((B, Hkv, S, D), 12, dev, dtype)
+    v = _randn((B, Hkv, S, D), 13, dev, dtype)
+    do = _randn((B, H, S, D), 14, dev, dtype)
+    out, lse = ops._forward(q, k, v, True, True)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, True)
+    lse_err = float((lse - ref.flash_attention_lse_plain(
+        q, k, True)).abs().max())
+    want = ref.flash_attention_grads_plain(
+        *(t.float() for t in (q, k, v, do)), True)
+    errs = [float((g.float() - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    del want
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd at {(B, H, Hkv, S, D)} {dtype}"
+    if max(errs) > ATTN_TOL[dtype] or lse_err > 1e-3:
+        raise AssertionError(f"{what}: errors {errs}, lse {lse_err}")
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    del got, again
+    esize = q.element_size()
+    # read q, O, dO, k, v and lse once; write dq, dk, dv once
+    nbytes = ((4 * B * H * S * D + 4 * B * Hkv * S * D) * esize
+              + B * H * S * 4)
+    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
+    ops_n = 10 * D * pairs  # S, dP, dV, dK, dQ: a multiply and an add each
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
+    call = lambda: ops.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, do, lse, True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, leaves, do, retain_graph=True)
+    # three kernels a call: delta, dK/dV, dQ
+    dev_ms, per_call, names = device_profile(call, calls=5, expect=3)
+    res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": True,
+           "dtype": str(dtype).split(".")[-1], "max_abs_err": max(errs),
+           "errs_dq_dk_dv": errs, "lse_err": lse_err,
+           "ms": time_ms(call, reps=5, batch=2),
+           "kernel_device_ms": dev_ms, "device_kernels_per_call": per_call,
+           "device_kernels": names,
+           "plain_ms": time_ms(lambda: ref.flash_attention_grads_plain(
+               q, k, v, do, True), reps=3, batch=1, warmup=1),
+           **bound(nbytes, ops_n, peak),
+           "library_ms": time_ms(lib, reps=5, batch=2),
+           "library_device_ms": device_ms(lib, calls=5)}
+    del lib_out, leaves
+    return res
+
+
+def check_moe_gate_bwd(T, E, k, dtype, dev, ties=False):
+    """The gate's probability-mean forward and its backward kernel
+    against the plain version and autograd through it: ids and counts
+    exact, the mean and d logits within GATE_TOL of their largest
+    |value|, two calls bit-equal. No single library call computes it."""
+    from repro_torch.kernels.moe_gate import ops, ref
+    logits = _randn((T, E), T + E + 7, dev, dtype, scale=0.7)
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    b = _randn((E,), E + 3, dev, scale=0.05)
+    gtp = _randn((T, k), 21, dev)
+    gpm = _randn((E,), 22, dev)
+    top_p, top_e, counts, pm = ops.moe_gate(logits, k, b, True,
+                                            prob_mean=True)
+    want = ref.moe_gate_plain(logits, k, b, True, prob_mean=True)
+    got = ops.moe_gate_bwd(logits, top_e, gtp, gpm, True)
+    wg = ref.moe_gate_grads_plain(logits, k, b, True, gtp, gpm)
+    torch.cuda.synchronize()
+    pm_err = float((pm - want[3]).abs().max() / want[3].abs().max())
+    err = float((got.float() - wg).abs().max() / wg.abs().max())
+    what = f"moe_gate_bwd at T={T}, E={E}, k={k}, {dtype}, ties={ties}"
+    if not (torch.equal(top_e, want[1]) and torch.equal(counts, want[2])
+            and pm_err <= GATE_TOL and err <= GATE_TOL):
+        raise AssertionError(f"{what}: ids/counts differ, prob_mean err "
+                             f"{pm_err}, d logits err {err}")
+    same = torch.equal(got, ops.moe_gate_bwd(logits, top_e, gtp, gpm, True))
+    same = same and torch.equal(pm, ops.moe_gate(logits, k, b, True,
+                                                 prob_mean=True)[3])
+    if not same:
+        raise AssertionError(f"{what}: two calls differ")
+    esize = logits.element_size()
+    # read logits, ids, g_top_p and g_prob_mean; write d logits
+    nbytes = 2 * T * E * esize + T * k * 8 + E * 4
+    ops_n = T * E * 8  # max, sub, exp, sum, div, dot, sub and mul a value
+    call = lambda: ops.moe_gate_bwd(logits, top_e, gtp, gpm, True)  # noqa
+    fwd = lambda: ops.moe_gate(logits, k, b, True, prob_mean=True)  # noqa
+    fwd_ms, fwd_per_call, fwd_names = device_profile(fwd, expect=2)
+    # the forward's bytes and operations (check_moe_gate's) and the mean's
+    fwd_bytes = T * E * esize + E * 4 + T * k * 8 + E * 4 + E * 4
+    fwd_ops = T * E * (5 + 2 * k) + T * E
+    return {"T": T, "E": E, "k": k, "dtype": str(dtype).split(".")[-1],
+            "ties": ties, "max_abs_err": err, "prob_mean_err": pm_err,
+            "ms": time_ms(call),
+            "kernel_device_ms": device_ms(call, "moe_gate_bwd_kernel"),
+            "plain_ms": time_ms(lambda: ref.moe_gate_grads_plain(
+                logits, k, b, True, gtp, gpm), batch=1),
+            **bound(nbytes, ops_n), "library_ms": None,
+            "prob_mean_forward": {
+                "ms": time_ms(fwd), "device_ms": fwd_ms,
+                "device_kernels_per_call": fwd_per_call,
+                "device_kernels": fwd_names,
+                "plain_ms": time_ms(lambda: ref.moe_gate_plain(
+                    logits, k, b, True, prob_mean=True), batch=1),
+                **bound(fwd_bytes, fwd_ops)}}
+
+
+def check_train_kernels(dev):
+    """The training path's kernels at the shapes its runs give them."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return {
+        "flash_attention_bwd": [
+            check_flash_attention_bwd(2, 32, 4, 4096, 64, bf, dev),
+            check_flash_attention_bwd(1, 28, 4, 4096, 128, bf, dev),
+            check_flash_attention_bwd(1, 4, 2, 1024, 16, f32, dev)],
+        "moe_gate_bwd": [check_moe_gate_bwd(8192, 128, 8, f32, dev),
+                         check_moe_gate_bwd(8192, 128, 8, f32, dev,
+                                            ties=True)],
+        # qwen2-7b's group of 7 at D 128, forward and decode
+        "flash_attention_g7": [
+            check_flash_attention(1, 28, 4, 4096, 128, bf, dev)],
+        "flash_decode_g7": [
+            check_flash_decode(4, 28, 4, 528, 128, 527, bf, dev)],
+    }
+
+
+def _digests(state) -> list:
+    """sha256 and dtype of each leaf's bytes, in the checkpoint's order
+    (bf16 as its uint16 bits): two states are bit-equal where these
+    are."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import _to_host
+
+    def one(t):
+        arr, dt = _to_host(t)
+        return hashlib.sha256(arr.data).hexdigest() + ":" + dt
+    with ThreadPoolExecutor(4) as ex:
+        return list(ex.map(one, tree.leaves(state)))
+
+
+def _train_run(cfg, spec, steps, ckpt, dev, fail_at=None, snapshot_at=0):
+    """One Trainer run of phase train (AdamW, remat, chunked loss, a
+    checkpoint every spec["checkpoint_every"] steps, async; none at the
+    end: the card machine's disk takes ~45 GiB of writes a call, and
+    tinyllama's state is 15.4 GB). Returns (result, or None where it
+    crashed as asked; per-step loss, grad norm and lr; per-step seconds,
+    without the snapshot's copy; the run's trainer; the state after step
+    `snapshot_at` on the host, or None)."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import TrainCtx
+    from repro_torch.launch.train import make_trainer
+    px = TrainCtx(num_microbatches=spec["microbatches"],
+                  loss_chunk=spec["loss_chunk"])
+    tr = make_trainer(cfg, seq=spec["seq"], batch=spec["batch"],
+                      steps=steps, ckpt_dir=ckpt, device=dev, px=px,
+                      checkpoint_every=spec["checkpoint_every"],
+                      save_final=False, log=lambda s: None)
+    per_step, inner, snap = [], tr.step_fn, []
+
+    def step_fn(*args):
+        out = inner(*args)
+        per_step.append({k: float(out[3][k])
+                         for k in ("loss", "grad_norm", "lr")})
+        if snapshot_at and len(per_step) == snapshot_at:
+            # a copy: the next step updates the optimizer state in place
+            t0 = time.perf_counter()
+            snap.append(tree.tree_map(lambda t: t.to("cpu", copy=True),
+                                      out[:3]))
+            snap.append(time.perf_counter() - t0)
+        return out
+    tr.step_fn = step_fn
+    try:
+        res = tr.run(fail_at=fail_at)
+    except RuntimeError as e:
+        if fail_at is None or "injected failure" not in str(e):
+            raise
+        res = None
+    secs = list(tr.step_seconds)
+    if snap:
+        secs[snapshot_at - 1] -= snap[1]
+    tr.step_fn = inner
+    return res, per_step, secs, tr, (snap[0] if snap else None)
+
+
+def _moved(cfg, master, dev):
+    """Per leaf: the largest change of the float32 master weights from
+    the seed's initial weights (a bf16 weight may round back to its
+    start after a few warmup steps; its master does not)."""
+    from repro_torch import tree
+    from repro_torch.models import lm
+    init = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    return [float((a.float() - b).abs().max())
+            for a, b in zip(tree.leaves(init), tree.leaves(master))]
+
+
+def _finite(per_step):
+    return all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+               for s in per_step)
+
+
+def _state(res):
+    return res["params"], res["opt_state"], res["extras"]
+
+
+def train_dense(steps: int, smi: str, dev):
+    """tinyllama-1.1b at full width and depth through the Trainer:
+    `steps` steps with an async checkpoint at step 3; then, from that
+    checkpoint, a run killed after step 4 and a second restart, which
+    must end with the first run's params, optimizer state, extras and
+    data cursor, bit for bit (every leaf's sha256). One checkpoint is
+    written in all. Returns the first run's launches."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    spec, cfg = TRAIN, get_arch(TRAIN["arch"])
+    root = os.path.join(HERE, "results", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    res, per_step, secs, _, _ = _train_run(cfg, spec, steps, root, dev)
+    wall = time.perf_counter() - t0
+    launches = kbuild.launches()
+    peak = torch.cuda.max_memory_allocated()
+    moved = _moved(cfg, res["opt_state"]["master"], dev)
+    first = (_digests(_state(res)), res["data_step"], per_step[-1]["loss"])
+    del res
+    t0 = time.perf_counter()
+    crashed, _, _, _, _ = _train_run(cfg, spec, steps, root, dev,
+                                     fail_at=spec["fail_at"])
+    resumed, per2, _, _, _ = _train_run(cfg, spec, steps, root, dev)
+    t_restart = time.perf_counter() - t0
+    second = (_digests(_state(resumed)), resumed["data_step"],
+              per2[-1]["loss"])
+    del resumed
+    shutil.rmtree(root)
+    s_step = statistics.median(secs[-4:])
+    steady = statistics.median(secs[1:])  # after the first (warm-up)
+    tokens = spec["batch"] * spec["seq"]
+    # model FLOPs a token: 6 x the matmul parameters (the input embedding
+    # is a lookup) + 6 L S d for causal attention (forward and backward)
+    n_mm = cfg.param_count() - cfg.padded_vocab * cfg.d_model
+    flops_tok = 6 * n_mm + 6 * cfg.n_layers * spec["seq"] * cfg.d_model
+    out = {"run": "dense", "card": smi, "arch": cfg.name,
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           **{k: spec[k] for k in ("seq", "batch", "microbatches",
+                                   "loss_chunk", "checkpoint_every")},
+           "steps": steps, "remat": "full", "optimizer": "adamw",
+           "s_per_step": s_step, "s_per_step_after_first": steady,
+           "step_seconds": secs, "tokens_per_s": tokens / s_step,
+           "model_flops_per_step": flops_tok * tokens,
+           "mfu_vs_989_tflops": flops_tok * tokens / s_step / PEAK_BF16_S,
+           "max_memory_allocated": peak, "wall_s": wall,
+           "launches_per_step": {k: n / steps for k, n in launches.items()
+                                 if n},
+           "per_step": per_step, "params_moved_min": min(moved),
+           "restart": {"fail_at": spec["fail_at"],
+                       "resumed_from": spec["checkpoint_every"],
+                       "seconds": t_restart, "leaves": len(first[0]),
+                       "bit_exact": first == second and crashed is None}}
+    emit(phase="train", **out)
+    want = {"flash_attention": 2 * cfg.n_layers * spec["microbatches"],
+            "flash_attention_bwd": cfg.n_layers * spec["microbatches"]}
+    if any(launches[k] != n * steps for k, n in want.items()):
+        raise AssertionError(f"train: launched {launches}, want {want} "
+                             f"a step")
+    if not _finite(per_step) or min(moved) <= 0:
+        raise AssertionError("train: a non-finite loss or grad norm, or a "
+                             "weight that did not move")
+    if not out["restart"]["bit_exact"]:
+        raise AssertionError("train: the restarted run differs from the "
+                             "uninterrupted one")
+    return launches
+
+
+def train_moe(steps: int, smi: str, dev):
+    """qwen3-moe-30b-a3b at full width, cut to 2 layers, through the
+    Trainer: each microbatch's expert counts sum to T k in every layer
+    and move router_bias by +-BIAS_LR where they differ from their mean;
+    the run restarted from its state after step `steps` - 1 (kept on the
+    host: a 25.6 GB checkpoint would not fit the call's disk writes
+    beside tinyllama's) ends bit for bit where it ended."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import steps as tsteps
+    spec = TRAIN_MOE
+    cfg = dataclasses.replace(get_arch(spec["arch"]),
+                              n_layers=spec["layers"])
+    root = os.path.join(HERE, "results", "train_moe_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    rec = []
+    orig = tsteps._update_router_bias
+
+    def spy(extras, metrics):
+        new = orig(extras, metrics)
+        rec.append((extras["router_bias"].clone(),
+                    metrics["expert_counts"].clone(),
+                    new["router_bias"].clone()))
+        return new
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    with mock.patch.object(tsteps, "_update_router_bias", spy):
+        res, per_step, secs, tr, snap = _train_run(
+            cfg, spec, steps, root, dev, snapshot_at=steps - 1)
+    launches = kbuild.launches()
+    peak = torch.cuda.max_memory_allocated()
+    moved = _moved(cfg, res["opt_state"]["master"], dev)
+    first = (_digests(_state(res)), res["data_step"], per_step[-1]["loss"])
+    del res
+    T = spec["batch"] // spec["microbatches"] * spec["seq"]
+    K = cfg.moe.top_k
+    sums_ok, bias_ok, dev_from_lr = True, True, 0.0
+    for before, counts, after in rec:
+        sums_ok &= bool((counts.sum(-1) == T * K).all())
+        c = counts.float()
+        mean = c.mean(-1, keepdim=True)
+        want = torch.where(c != mean,
+                           before + tsteps.BIAS_LR * torch.sign(mean - c),
+                           before)
+        bias_ok &= torch.equal(after, want)
+        d = (after.double() - before.double()).abs()
+        dev_from_lr = max(dev_from_lr, float(
+            (d - tsteps.BIAS_LR * (c != mean)).abs().max()))
+    # the restart: the run's own step on the host state after step
+    # steps - 1 and the stream's batch at that cursor
+    t0 = time.perf_counter()
+    batch = SyntheticLM(tr.data_cfg).batch_at(steps - 1)
+    state = tree.tree_map(lambda t: t.to(dev), snap)
+    del snap
+    p, o, e, m = tr.step_fn(*state, batch)
+    del state
+    second = (_digests((p, o, e)), steps, float(m["loss"]))
+    del p, o, e
+    t_restart = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    s_step = statistics.median(secs[1:])  # after the first (warm-up)
+    out = {"run": "moe", "card": smi, "arch": cfg.name,
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           **{k: spec[k] for k in ("seq", "batch", "microbatches",
+                                   "loss_chunk")},
+           "steps": steps, "s_per_step": s_step, "step_seconds": secs,
+           "tokens_per_s": spec["batch"] * spec["seq"] / s_step,
+           "max_memory_allocated": peak,
+           "launches_per_step": {k: n / steps for k, n in launches.items()
+                                 if n},
+           "per_step": per_step, "params_moved_min": min(moved),
+           "microbatches_seen": len(rec), "counts_sum_to_TK": sums_ok,
+           "router_bias_sign_update": bias_ok,
+           "bias_move_max_dev_from_lr": dev_from_lr,
+           "restart": {"from_step": steps - 1, "seconds": t_restart,
+                       "leaves": len(first[0]),
+                       "bit_exact": first == second}}
+    emit(phase="train", **out)
+    mb = spec["microbatches"]
+    want = {"moe_gate": 2 * cfg.n_layers * mb,
+            "moe_gate_bwd": cfg.n_layers * mb,
+            "flash_attention_bwd": cfg.n_layers * mb}
+    if any(launches[k] != n * steps for k, n in want.items()):
+        raise AssertionError(f"train moe: launched {launches}, want {want} "
+                             f"a step")
+    if not (_finite(per_step) and min(moved) > 0 and sums_ok and bias_ok
+            and len(rec) == steps * mb and out["restart"]["bit_exact"]):
+        raise AssertionError(f"train moe: a check failed: {out}")
+    return launches
+
+
+def train_cpu_child(dev):
+    """Body of phase train's float32 subprocess (REPRO_FORCE_F32=1): one
+    train step of the dense and the MoE smoke configs on `dev` and on
+    the CPU from the same weights and batch. Prints one JSON line."""
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.steps import TrainCtx, build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    out = {}
+    for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b"):
+        cfg = get_smoke(arch)
+        S, B = 64, 8
+        fn = build_train_step(cfg, ShapeConfig("t", S, B, "train"),
+                              TrainCtx(num_microbatches=2, loss_chunk=16))
+        batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=1)
+                            ).batch_at(0)
+        params = lm.init_params(torch.Generator().manual_seed(3), cfg)
+        runs = {}
+        kbuild.reset_launches()
+        for d in ("cpu", dev):
+            p = tree.tree_map(lambda t: t.to(d), params)
+            runs[str(d)] = fn(p, adamw_init(p), lm.init_extras(cfg, d),
+                              batch)
+        torch.cuda.synchronize()
+        c, g = runs["cpu"], runs[str(dev)]
+        rel = {k: abs(float(g[3][k]) - float(c[3][k]))
+               / max(abs(float(c[3][k])), 1e-30)
+               for k in ("loss", "grad_norm", "lr")}
+        perr = max(float((a.cpu() - b).abs().max()) for a, b in
+                   zip(tree.leaves(g[0]), tree.leaves(c[0])))
+        row = {"params_dtype": str(tree.leaves(params)[0].dtype),
+               "metric_rel": rel, "param_err": perr,
+               "launches": {k: n for k, n in kbuild.launches().items() if n}}
+        if cfg.moe is not None:
+            row["router_bias_equal"] = torch.equal(
+                g[2]["router_bias"].cpu(), c[2]["router_bias"])
+        out[cfg.name] = row
+    print(json.dumps(out), flush=True)
+
+
+def train_cpu(smi: str):
+    """Phase train's float32 step, card against CPU, in a
+    REPRO_FORCE_F32=1 subprocess (the port reads it at import)."""
+    env = dict(os.environ, REPRO_FORCE_F32="1")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--train-cpu-child"], capture_output=True,
+                          text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train cpu child failed:\n{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit(phase="train", run="card vs cpu", card=smi, dtype="float32",
+         tol=TRAIN_F32_TOL, grad_tol=TRAIN_GRAD_TOL, **res)
+    for name, r in res.items():
+        rel = r["metric_rel"]
+        bad = (r["params_dtype"] != "torch.float32"
+               or max(rel["loss"], rel["lr"]) > TRAIN_F32_TOL
+               or rel["grad_norm"] > TRAIN_GRAD_TOL
+               or r["param_err"] > TRAIN_F32_TOL
+               or not r.get("router_bias_equal", True)
+               or r["launches"].get("flash_attention_bwd", 0) < 1)
+        if bad:
+            raise AssertionError(f"train card vs cpu, {name}: {r}")
+
+
+def train(steps: int, moe_steps: int, smi: str, dev):
+    """Phase train: the kernels, then the runs. Returns (the kernel
+    checks' shapes, the dense run's launches, the MoE run's)."""
+    shapes = check_train_kernels(dev)
+    emit(phase="train_kernels_checked", shapes=shapes)
+    torch.cuda.empty_cache()
+    dense = train_dense(steps, smi, dev)
+    torch.cuda.empty_cache()
+    moe = train_moe(moe_steps, smi, dev)
+    torch.cuda.empty_cache()
+    train_cpu(smi)
+    return shapes, dense, moe
+
+
+#: the dense serve: qwen2-7b at full width and depth
+DENSE_SERVE = dict(arch="qwen2-7b", batch=4, prompt_len=512, seed=0)
+
+
+def dense_serve_phase(gen: int, smi: str, dev):
+    """qwen2-7b (28 layers, group of 7, D 128, QKV bias) serving 4
+    prompts of 512 tokens and `gen` greedy steps through
+    `launch/serve.py`, then every layer through the kernels against the
+    plain versions (teacher-forced, as phase serve)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.serve import serve
+    cfg = get_arch(DENSE_SERVE["arch"])
+    B, P, seed = (DENSE_SERVE[k] for k in ("batch", "prompt_len", "seed"))
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    run = serve(cfg, None, B, P, gen, seed, dev, keep_logits=True)
+    launches = kbuild.launches()
+    peak = torch.cuda.max_memory_allocated()
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(seed + 1))
+    vs_plain = layerwise_vs_plain(cfg, seed, prompts, run["tokens"], dev)
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * gen, "moe_gate": 0}
+    res = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "batch": B, "prompt_len": P,
+           "gen": gen, "launches": {k: launches[k] for k in want},
+           "max_memory_allocated": peak, "prefill_s": run["prefill_s"],
+           "prefill_tokens_per_s": B * P / run["prefill_s"],
+           "decode_ms_per_step": 1e3 * run["decode_s"] / gen,
+           "decode_tokens_per_s": B * gen / run["decode_s"],
+           "vs_plain_layerwise": vs_plain}
+    emit(phase="dense_serve", **res)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"dense serve launched {launches}, want {want}")
+    return res
 
 
 def run_engine(cfg, dev, seed=0):
@@ -2549,12 +3114,23 @@ def main():
         help="with --profile: an exp6 scenario at full width instead")
     p.add_argument("--replicas", type=int, default=1,
                    help="with --profile: a batch of this many replicas")
+    p.add_argument("--train-steps", type=int, default=6,
+                   help="steps of phase train's tinyllama-1.1b run")
+    p.add_argument("--train-moe-steps", type=int, default=3,
+                   help="steps of phase train's cut-depth qwen3-moe run")
+    p.add_argument("--dense-gen", type=int, default=16,
+                   help="decode steps of the dense serve (qwen2-7b)")
+    p.add_argument("--train-cpu-child", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
     a = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is visible")
+    if a.train_cpu_child:
+        train_cpu_child(torch.device("cuda"))
+        return
     dev = torch.device("cuda")
     smi = card()
     build()
@@ -2629,6 +3205,9 @@ def main():
     timed("scale", scale, a.scale_steps, dev)
     timed("cpu", card_vs_cpu, a.cpu_steps, dev)
     timed("serve_cpu", serve_cpu_phase, dev)
+    train_shapes, train_launches, moe_launches = timed(
+        "train", train, a.train_steps, a.train_moe_steps, smi, dev)
+    timed("dense_serve", dense_serve_phase, a.dense_gen, smi, dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -2659,6 +3238,19 @@ def main():
                             src + "capacity_assign/csrc/capacity_assign.cu",
                             "src/repro/core/partition.py:178"),
     }
+    # the training path's kernels: launches from phase train's runs
+    # (tinyllama-1.1b; the gate's from the cut-depth qwen3-moe run)
+    train_meta = {
+        "flash_attention_bwd": (
+            "flash_attention_bwd", "flash_attention_bwd",
+            src + "flash_attention/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:67",
+            train_launches),
+        "moe_gate_bwd": ("moe_gate_bwd", "moe_gate_bwd",
+                         src + "moe_gate/csrc/moe_gate_bwd.cu",
+                         "src/repro/kernels/moe_gate/moe_gate.py:55",
+                         moe_launches),
+    }
     kernels = []
     for k, (name, stem, source, replaces) in meta.items():
         main_shape = shapes[k][0]  # the shape the main path gives it
@@ -2670,12 +3262,25 @@ def main():
             "service_launches": service_launches.get(stem, 0),
             "obs_launches": obs_launches.get(stem, 0),
             "sharded_launches": sharded_launches.get(stem, 0),
+            "train_launches": train_launches.get(stem, 0),
+            "train_moe_launches": moe_launches.get(stem, 0),
             **{f: main_shape[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             **{f: main_shape.get(f) for f in ("kernel_device_ms",
                                               "library_device_ms")},
-            "shapes": shapes[k]})
+            "shapes": shapes[k] + train_shapes.get(f"{k}_g7", [])})
+    for k, (name, stem, source, replaces, runs) in train_meta.items():
+        main_shape = train_shapes[k][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": runs[stem],
+            **{f: main_shape[f] for f in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            **{f: main_shape.get(f) for f in ("kernel_device_ms",
+                                              "library_device_ms")},
+            "shapes": train_shapes[k]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

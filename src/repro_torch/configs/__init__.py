@@ -1,7 +1,8 @@
 """Config registry: ``get_arch(name)`` / ``ARCHS`` / ``SHAPES``, the
 port's copy of `repro.configs` for the architectures it runs.
 
-The port runs `qwen3-moe-30b-a3b`. The reference's other registered
+The port runs the dense families (`yi-9b`, `tinyllama-1.1b`, `yi-6b`,
+`qwen2-7b`) and `qwen3-moe-30b-a3b`. The reference's other registered
 architectures raise `NotImplementedError` naming the ROADMAP.md item
 that brings them; an unknown name raises `KeyError`, as there.
 """
@@ -9,20 +10,20 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen3_moe_30b_a3b
+from repro_torch.configs import (qwen2_7b, qwen3_moe_30b_a3b,
+                                 tinyllama_1_1b, yi_6b, yi_9b)
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES  # noqa: F401
 
 #: where the families this slice does not run come from
 LATER = ("ROADMAP.md queue 1, item 11 (the LM/MoE stack: dense, MLA, "
          "rwkv6, mamba2, encoder-decoder and vision families)")
 
-ARCHS: Dict[str, ArchConfig] = {
-    qwen3_moe_30b_a3b.CONFIG.name: qwen3_moe_30b_a3b.CONFIG}
-_SMOKES = {qwen3_moe_30b_a3b.CONFIG.name: qwen3_moe_30b_a3b.smoke_config}
+_PORTED = (yi_9b, tinyllama_1_1b, yi_6b, qwen2_7b, qwen3_moe_30b_a3b)
+ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _PORTED}
+_SMOKES = {m.CONFIG.name: m.smoke_config for m in _PORTED}
 
 #: the reference's registered architectures that are not ported yet
-NOT_PORTED = ("yi-9b", "tinyllama-1.1b", "yi-6b", "qwen2-7b",
-              "deepseek-v3-671b", "rwkv6-1.6b", "internvl2-2b",
+NOT_PORTED = ("deepseek-v3-671b", "rwkv6-1.6b", "internvl2-2b",
               "seamless-m4t-medium", "zamba2-1.2b")
 
 

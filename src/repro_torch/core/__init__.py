@@ -14,15 +14,20 @@ closed or open world, behind the resident service.
   `ReplicaService` (continuous batching of requests over the replicas)
 - selftune: the §5.5 MF tuners (intra-run, batched, inter-run)
 - costmodel, stats: host-only copies of the reference's modules
+
+The supported surface is `__all__`, which covers the reference's pinned
+one; `run` and `run_batch` stay importable as DeprecationWarning shims
+outside it, as in the reference.
 """
 from repro_torch.core.abm import (ABMConfig, MOBILITY_MODELS,  # noqa: F401
                                   PROXIMITY_BACKENDS)
 from repro_torch.core.costmodel import (DISTRIBUTED, PARALLEL,  # noqa: F401
                                         SETUPS, CostParams,
                                         ExecutionEnvironment, make_env, wct,
-                                        wct_env)
-from repro_torch.core.engine import (EngineConfig,  # noqa: F401
-                                     state_from_numpy, state_to_numpy)
+                                        wct_env, wire_cost)
+from repro_torch.core.engine import (EngineConfig, run,  # noqa: F401
+                                     run_batch, state_from_numpy,
+                                     state_to_numpy)
 from repro_torch.core.heuristics import HeuristicConfig  # noqa: F401
 from repro_torch.core.neighbors import (GridSpec, build_grid,  # noqa: F401
                                         grid_lp_counts, make_grid_spec)
@@ -40,7 +45,7 @@ __all__ = [
     "Engine", "ReplicaService",
     "MOBILITY_MODELS", "PROXIMITY_BACKENDS", "PARTITION_BACKENDS",
     "SETUPS", "DISTRIBUTED", "PARALLEL", "CostParams",
-    "ExecutionEnvironment", "make_env", "wct", "wct_env",
+    "ExecutionEnvironment", "make_env", "wct", "wct_env", "wire_cost",
     "GridSpec", "build_grid", "grid_lp_counts", "make_grid_spec",
     "state_from_numpy", "state_to_numpy",
     "merge_counters", "replica_stats", "summarize", "is_stats",

@@ -794,3 +794,32 @@ def _run_batch(cfg: EngineConfig, seeds, device):
     for c in reps:
         c["migration_ratio"] = _migration_ratio(c, cfg)
     return _unshard(states, cfg, batch=True), series, reps
+
+
+# ---------------------------------------------------------------------------
+# Deprecated free functions, kept importable as the reference keeps them
+# (`repro.core.engine.run` / `run_batch`): they warn and delegate, so old
+# callers get the same bits; new code goes through `core.Engine`.
+# ---------------------------------------------------------------------------
+
+
+def _deprecated(old: str, hint: str):
+    import warnings
+    warnings.warn(
+        f"repro_torch.core.engine.{old} is deprecated; use {hint}",
+        DeprecationWarning, stacklevel=3)
+
+
+def run(key, cfg: EngineConfig, device=None):
+    """Deprecated: use `repro_torch.core.Engine(cfg).run()`. Runs on the
+    card unless `device` is given."""
+    from repro_torch.core.service import resolve_device
+    _deprecated("run", "repro_torch.core.Engine(cfg).run()")
+    return _run(key, cfg, resolve_device(device))
+
+
+def run_batch(cfg: EngineConfig, seeds, device=None):
+    """Deprecated: use `repro_torch.core.Engine(cfg).run(seeds=[...])`."""
+    from repro_torch.core.service import resolve_device
+    _deprecated("run_batch", "repro_torch.core.Engine(cfg).run(seeds=[...])")
+    return _run_batch(cfg, seeds, resolve_device(device))

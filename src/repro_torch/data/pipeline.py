@@ -1,6 +1,14 @@
-"""Position traces for the engine's `trace` mobility model, the port's
-own copy of the trace half of `repro.data.pipeline` (numpy only, so
-the two packages produce the same frames from the same spec).
+"""The port's own copy of `repro.data.pipeline` (numpy only, so the two
+packages produce the same tokens and frames from the same config):
+
+- the LM half: `DataConfig`, `SyntheticLM` and `make_pipeline`, the
+  deterministic, restart-safe token stream of the training loop;
+- the trace half: position traces for the engine's `trace` mobility
+  model.
+
+Batches are a pure function of (seed, step), so a restarted trainer
+replays the exact token stream without saved iterator state; a
+background thread keeps `prefetch` batches ahead of the loop.
 
     spec = TraceSpec(n_se=10_000, area=10_000.0, timesteps=1201)
     register_trace("commute", synthetic_trace(spec))
@@ -12,8 +20,90 @@ registers the same frames in each.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from typing import Iterator, Optional
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# The synthetic LM stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    prefetch: int = 2
+    structure: float = 0.9  # P(follow the markov rule) vs uniform noise
+    order: int = 1  # 1: learnable bigram bijection; 2: modular arithmetic
+
+
+class SyntheticLM:
+    """Markov stream. Order 1: next = (31*a + 7) % V (a bijection when
+    gcd(31, V) = 1). Order 2: next = (31*a + 17*b + 7) % V. Both with
+    prob `structure`, else uniform. The generator and its draws are the
+    reference's, so the tokens are bit-equal."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+
+    def batch_at(self, step: int) -> dict:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        B, S, V = cfg.global_batch, cfg.seq_len, cfg.vocab_size
+        toks = np.empty((B, S), np.int32)
+        toks[:, 0] = rng.integers(0, V, B)
+        toks[:, 1] = rng.integers(0, V, B)
+        noise = rng.random((B, S)) >= cfg.structure
+        rand = rng.integers(0, V, (B, S))
+        for t in range(2, S):
+            if cfg.order == 1:
+                nxt = (toks[:, t - 1] * 31 + 7) % V
+            else:
+                nxt = (toks[:, t - 1] * 31 + toks[:, t - 2] * 17 + 7) % V
+            toks[:, t] = np.where(noise[:, t], rand[:, t], nxt)
+        return {"tokens": toks,
+                "loss_mask": np.ones((B, S), np.float32)}
+
+
+def make_pipeline(cfg: DataConfig, start_step: int = 0,
+                  source: Optional[SyntheticLM] = None) -> Iterator[dict]:
+    """Prefetching iterator over batches, resumable at `start_step`.
+    Closing the iterator (or dropping it) stops its thread."""
+    src = source or SyntheticLM(cfg)
+    q: "queue.Queue" = queue.Queue(maxsize=max(cfg.prefetch, 1))
+    stop = threading.Event()
+
+    def worker():
+        step = start_step
+        while not stop.is_set():
+            try:
+                q.put(src.batch_at(step), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+
+    def gen():
+        try:
+            while True:
+                yield q.get()
+        finally:
+            stop.set()
+
+    return gen()
+
+
+# ---------------------------------------------------------------------------
+# Mobility traces
+# ---------------------------------------------------------------------------
 
 # A trace is a dense (T, N, 2) float32 frame stack: frame t holds the
 # position of every SE at integer step t, already on the torus

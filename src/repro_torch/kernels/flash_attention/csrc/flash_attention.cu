@@ -13,6 +13,11 @@
 // 989 TFLOP/s bf16): the bytes set it, but only a kernel that keeps the
 // tensor cores busy and the loads in flight gets near either.
 //
+// Training: with a non-null `lse` each path also writes the float32
+// natural log-sum-exp of every query row's scaled, masked scores,
+// (B, H, S), for the backward kernel (flash_attention_bwd.cu); with a
+// null `lse` (the serve path) nothing else changes.
+//
 // Semantics of every path: scores scaled by the caller's float32
 // D^-0.5, top-left causal alignment, Skv != S allowed with ragged S and
 // Skv masked at the edge, masked scores at -1e30, each row divided by
@@ -93,8 +98,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int H, int Hkv, int S, int Skv, int causal,
-                       float scale) {
+                       float* __restrict__ lse, int H, int Hkv, int S,
+                       int Skv, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int HALF = D / 2;
   extern __shared__ float smem[];
@@ -192,13 +197,15 @@ flash_attention_kernel(const float* __restrict__ q,
     float* o = out + (static_cast<int64_t>(bh) * S + qpos) * D + half * HALF;
 #pragma unroll
     for (int c = 0; c < HALF; ++c) o[c] = acc[c] / den;
+    if (lse && half == 0)
+      lse[static_cast<int64_t>(bh) * S + qpos] = m + logf(l);
   }
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int Hkv, int S, int Skv, int causal, float scale,
-             cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int H, int Hkv, int S, int Skv, int causal,
+             float scale, cudaStream_t s) {
   auto kern = flash_attention_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
@@ -206,9 +213,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem_bytes<D>(), s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, S, Skv,
-      causal,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, Hkv,
+      S, Skv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,8 +273,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int H, int Hkv,
-                           int S, int Skv, int causal, float scale) {
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int H, int Hkv, int S,
+                           int Skv, int causal, float scale) {
   constexpr int DS = D + 8;  // shared row stride, in elements
   constexpr int KC = D / 16;  // k-chunks of QK^T
   constexpr int ND = D / 8;   // n-chunks of PV
@@ -406,12 +413,16 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + static_cast<int64_t>(qpos1) * D + col) =
           pack_bf16(o[n][2] / d1, o[n][3] / d1);
   }
+  if (lse && t == 0) {  // m is in scaled units here
+    if (qpos0 < S) lse[static_cast<int64_t>(bh) * S + qpos0] = m0 + logf(l0);
+    if (qpos1 < S) lse[static_cast<int64_t>(bh) * S + qpos1] = m1 + logf(l1);
+  }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Hkv, int S, int Skv, int causal, float scale,
-               cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int Hkv, int S, int Skv, int causal,
+               float scale, cudaStream_t s) {
   auto kern = flash_attention_mma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem_bytes<D>());
@@ -419,8 +430,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, mma_smem_bytes<D>(), s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H,
-      Hkv, S, Skv, causal, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      lse, H, Hkv, S, Skv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,6 +440,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
 // ---------------------------------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int TILE_BYTES = 64 * 128;  // one (64 rows, 64 bf16) swizzled box
 
 template <int D, int NWG>
@@ -458,9 +470,10 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS,
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             const __grid_constant__ CUtensorMap to, int H,
-                             int Hkv, int Skv, int causal, float scale_log2,
-                             int n_qt, int n_hg) {
+                             const __grid_constant__ CUtensorMap to,
+                             float* __restrict__ lse, int H, int Hkv, int S,
+                             int Skv, int causal, float scale_log2, int n_qt,
+                             int n_hg) {
   using C = Wg<D, NWG>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -678,6 +691,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (lse && t == 0) {  // P was 2^((s - m) scale_log2): lse in base e
+      float* lr = lse + static_cast<int64_t>(bh0 + wg) * S;
+      if (qpos0 < S) lr[qpos0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+      if (qpos1 < S) lr[qpos1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+    }
     const int r0 = (warp & 3) * 16 + g;  // rows r0, r0 + 8 of the tile
     unsigned char* qtile = smem_raw + (qa - sm90::smem_addr(smem_raw));
 #pragma unroll
@@ -705,8 +723,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D, int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int Hkv, int S, int Skv, int causal,
-                 float scale, cudaStream_t s) {
+                 float* lse, int B, int H, int Hkv, int S, int Skv,
+                 int causal, float scale, cudaStream_t s) {
   using C = Wg<D, NWG>;
   CUtensorMap mq, mk, mv, mo;
   int e = sm90::make_map_bf16_3d(&mq, q, D, S, static_cast<uint64_t>(B) * H,
@@ -747,8 +765,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = static_cast<int>(
       total < slots[dev] ? total : static_cast<int64_t>(slots[dev]));
-  kern<<<blocks, C::THREADS, C::SMEM, s>>>(mq, mk, mv, mo, H, Hkv, Skv,
-                                           causal, scale * LOG2E, n_qt,
+  kern<<<blocks, C::THREADS, C::SMEM, s>>>(mq, mk, mv, mo, lse, H, Hkv, S,
+                                           Skv, causal, scale * LOG2E, n_qt,
                                            n_hg);
   return static_cast<int>(cudaGetLastError());
 }
@@ -757,27 +775,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // even, else one; D 16 and 32 on mma.sync
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int Hkv, int S, int Skv, int causal,
-                float scale, cudaStream_t s) {
+                float* lse, int B, int H, int Hkv, int S, int Skv,
+                int causal, float scale, cudaStream_t s) {
   if constexpr (D < 64) {
-    return launch_mma<D>(q, k, v, out, B, H, Hkv, S, Skv, causal, scale, s);
+    return launch_mma<D>(q, k, v, out, lse, B, H, Hkv, S, Skv, causal, scale,
+                         s);
   } else {
     if ((H / Hkv) % 2 == 0)
-      return launch_wgmma<D, 2>(q, k, v, out, B, H, Hkv, S, Skv, causal,
+      return launch_wgmma<D, 2>(q, k, v, out, lse, B, H, Hkv, S, Skv, causal,
                                 scale, s);
-    return launch_wgmma<D, 1>(q, k, v, out, B, H, Hkv, S, Skv, causal,
+    return launch_wgmma<D, 1>(q, k, v, out, lse, B, H, Hkv, S, Skv, causal,
                               scale, s);
   }
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int S, int Skv, int D, int causal, float scale,
-           int dtype, cudaStream_t s) {
-#define FA_CASE(DD)                                                      \
-  case DD:                                                               \
-    return dtype == 1 ? launch_bf16<DD>(q, k, v, out, B, H, Hkv, S, Skv, \
-                                        causal, scale, s)                \
-                      : launch_d<DD>(q, k, v, out, B, H, Hkv, S, Skv,    \
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int Hkv, int S, int Skv, int D,
+           int causal, float scale, int dtype, cudaStream_t s) {
+#define FA_CASE(DD)                                                       \
+  case DD:                                                                \
+    return dtype == 1 ? launch_bf16<DD>(q, k, v, out, lse, B, H, Hkv, S,  \
+                                        Skv, causal, scale, s)            \
+                      : launch_d<DD>(q, k, v, out, lse, B, H, Hkv, S, Skv, \
                                      causal, scale, s)
   switch (D) {
     FA_CASE(16);
@@ -793,17 +812,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // q, out: (B, H, S, D); k, v: (B, Hkv, Skv, D); all contiguous, one
 // dtype (0 = float32, 1 = bfloat16). D in {16, 32, 64, 128}; scores
-// are scaled by `scale` (the caller's float32 D^-0.5).
+// are scaled by `scale` (the caller's float32 D^-0.5). lse: null, or a
+// float32 (B, H, S) that receives each row's log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
-                                      int Hkv, int S, int Skv, int D,
-                                      int causal, int dtype, float scale,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int H, int Hkv, int S, int Skv,
+                                      int D, int causal, int dtype,
+                                      float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, out, B, H, Hkv, S, Skv, D, causal, scale, dtype,
-                static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, out, static_cast<float*>(lse), B, H, Hkv, S, Skv,
+                D, causal, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

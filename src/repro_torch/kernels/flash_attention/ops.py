@@ -1,24 +1,32 @@
-"""Wrapper of the hand-written flash-attention forward
-(`csrc/flash_attention.cu`).
+"""Wrappers of the hand-written flash-attention kernels: the forward
+(`csrc/flash_attention.cu`) and the backward
+(`csrc/flash_attention_bwd.cu`).
 
-On a CUDA tensor it checks its inputs, allocates the output with
+On a CUDA tensor a wrapper checks its inputs, allocates its outputs with
 `torch.empty`, launches the kernel on the current stream and counts the
 launch; a launch CUDA refuses raises. In bf16 at D 64 and 128 the
-kernel's TMA tensor maps are encoded on the host inside the launch. On
+forward's TMA tensor maps are encoded on the host inside the launch. On
 a CPU tensor it runs the plain version (`ref.py`), and only then: there
 is no fallback from the card to the plain code.
+
+A call that needs a gradient (grad mode on and q, k or v requiring one)
+goes through `FlashAttention`, a `torch.autograd.Function`: its forward
+also writes the float32 row log-sum-exp, and its backward is the
+backward kernel. The backward is once differentiable: a second-order
+gradient raises.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import DTYPES, check, on_cuda
 from repro_torch.kernels.flash_attention import ref
 
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
 
 _P = ctypes.c_void_p
@@ -26,17 +34,19 @@ _I = ctypes.c_int
 
 kernel = build.CudaKernel(
     "flash_attention", "flash_attention_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float],
     errors="flash_attention_error_string")
 
+bwd_kernel = build.CudaKernel(
+    "flash_attention_bwd", "flash_attention_bwd_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+     _I, ctypes.c_float],
+    errors="flash_attention_bwd_error_string")
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Softmax(q k^T D^-0.5) v per head, causal (top-left aligned) or
-    not. q: (B, H, S, D); k, v: (B, Hkv, Skv, D), Hkv dividing H: query
-    head h reads KV head h // (H // Hkv), so grouped K/V is passed
-    unexpanded. One dtype, float32 or bfloat16. Returns (B, H, S, D)."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_plain(q, k, v, causal)
+
+def _check(q, k, v):
+    """(B, H, Hkv, S, Skv, D) of a call the kernels take; raises on
+    anything else."""
     on_cuda("flash_attention", q)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q and k/v are (B, H, S, D)")
@@ -54,8 +64,80 @@ def flash_attention(q, k, v, causal: bool = True):
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the bf16 kernel loads its tiles "
                          "by TMA, which needs 16-byte aligned tensors")
+    return B, H, Hkv, S, Skv, D
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """(out, lse or None) by one forward launch."""
+    B, H, Hkv, S, Skv, D = _check(q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Hkv, S, Skv, D, int(causal), DTYPES[q.dtype],
-                  D ** -0.5)
-    return out
+                  None if lse is None else lse.data_ptr(), B, H, Hkv, S,
+                  Skv, D, int(causal), DTYPES[q.dtype], D ** -0.5)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
+    """Gradients (dq, dk, dv) of `flash_attention(q, k, v, causal)` for
+    the output gradient `dout`, from the forward's `out` and row
+    log-sum-exp `lse` (B, H, S) float32. dk and dv are (B, Hkv, Skv, D):
+    the group's query heads are summed inside the kernel. One call is one
+    launch of the C entry, which runs three kernels: the row sums
+    delta = rowsum(dout * out), then dk/dv by key tile and dq by query
+    tile, each written once (no atomics: the result is the same in every
+    run)."""
+    B, H, Hkv, S, Skv, D = _check(q, k, v)
+    dev = q.device
+    check("out", out, (q.dtype,), (B, H, S, D), dev)
+    check("dout", dout, (q.dtype,), (B, H, S, D), dev)
+    check("lse", lse, (torch.float32,), (B, H, S), dev)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd: the bf16 kernel stages its "
+                         "tiles by 16-byte loads, which need 16-byte "
+                         "aligned tensors")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    bwd_kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, H, Hkv, S, Skv, D, int(causal),
+                      DTYPES[q.dtype], D ** -0.5)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernels as one differentiable op: forward with the row
+    log-sum-exp saved, backward by `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:  # a view at an odd offset: realign
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Softmax(q k^T D^-0.5) v per head, causal (top-left aligned) or
+    not. q: (B, H, S, D); k, v: (B, Hkv, Skv, D), Hkv dividing H: query
+    head h reads KV head h // (H // Hkv), so grouped K/V is passed
+    unexpanded. One dtype, float32 or bfloat16. Returns (B, H, S, D),
+    differentiable when the inputs need a gradient."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_plain(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, False)[0]

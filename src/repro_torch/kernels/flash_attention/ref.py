@@ -32,3 +32,25 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     l = p.sum(-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), vx.float())
     return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, causal: bool = True):
+    """The float32 row log-sum-exp (B, H, S) of the scaled, masked
+    scores: what the forward kernel writes for the backward."""
+    H, Hkv, D = q.shape[1], k.shape[1], q.shape[-1]
+    kx = k.repeat_interleave(H // Hkv, dim=1).float()
+    s = torch.matmul(q.float(), kx.transpose(-1, -2)) * D ** -0.5
+    if causal:
+        S, Skv = q.shape[2], k.shape[2]
+        keep = torch.ones(S, Skv, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_grads_plain(q, k, v, dout, causal: bool = True):
+    """(dq, dk, dv) by autograd through `flash_attention_plain`: the
+    plain twin of the backward kernel (dk, dv at (B, Hkv, Skv, D))."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal)
+        return torch.autograd.grad(out, leaves, dout)

@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written fused MoE gate (`csrc/moe_gate.cu`).
+"""Wrappers of the hand-written fused MoE gate (`csrc/moe_gate.cu`) and
+its backward (`csrc/moe_gate_bwd.cu`).
 
 On a CUDA tensor it checks its inputs, allocates the outputs,
 launches the kernel on the current stream and counts the launch: a call
@@ -8,6 +9,15 @@ the `counts` of the next call at the same expert count (`_counts`), so
 no memset runs but on the first call at an expert count. A launch CUDA
 refuses raises. On a CPU tensor it runs the plain version (`ref.py`),
 and only then: there is no fallback from the card to the plain code.
+
+With `prob_mean` the forward also returns the (E,) mean of the
+probabilities over the rows (the aux loss's `frac_probs`): each block
+writes its rows' sums into a partials buffer and a second kernel of the
+same launch adds the blocks' partials in block order, so the mean is the
+same in every run. A call whose logits need a gradient goes through
+`MoEGate`, a `torch.autograd.Function` whose backward is the backward
+kernel: gradients flow into top_p and the mean; the ids and counts have
+none, and the bias selects only.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import DTYPES, check, on_cuda
@@ -35,8 +46,13 @@ _I = ctypes.c_int
 
 kernel = build.CudaKernel(
     "moe_gate", "moe_gate_launch",
-    [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     errors="moe_gate_error_string")
+
+bwd_kernel = build.CudaKernel(
+    "moe_gate_bwd", "moe_gate_bwd_launch",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    errors="moe_gate_bwd_error_string")
 
 
 def grid_plan(T: int, sms: int) -> int:
@@ -71,16 +87,7 @@ def _counts(device, E: int):
     return counts, nxt
 
 
-def moe_gate(logits, k: int, bias=None, norm_topk: bool = True):
-    """Softmax over experts, top-k of probs + bias (ties to the lower
-    id), the unbiased probabilities of the picks (renormalised to sum 1
-    when `norm_topk`) and the per-expert pick counts.
-
-    logits: (T, E) float32 or bfloat16; bias: (E,) float32 or None.
-    Returns (top_p (T, k) float32, top_e (T, k) int32, counts (E,)
-    int32)."""
-    if logits.device.type == "cpu":
-        return ref.moe_gate_plain(logits, k, bias, norm_topk)
+def _check(logits, k: int, bias):
     on_cuda("moe_gate", logits)
     if logits.dim() != 2:
         raise ValueError(f"logits: expected (T, E), got {tuple(logits.shape)}")
@@ -93,12 +100,91 @@ def moe_gate(logits, k: int, bias=None, norm_topk: bool = True):
     check("logits", logits, DTYPES, (T, E), dev)
     if bias is not None:
         check("bias", bias, (torch.float32,), (E,), dev)
+    return T, E
+
+
+def _forward(logits, k: int, bias, norm_topk: bool, prob_mean: bool):
+    T, E = _check(logits, k, bias)
+    dev = logits.device
     top_p = torch.empty((T, k), dtype=torch.float32, device=dev)
     top_e = torch.empty((T, k), dtype=torch.int32, device=dev)
     counts, nxt = _counts(dev, E)
+    blocks = grid_plan(T, _sm_count(dev))
+    pm = part = None
+    if prob_mean:
+        pm = torch.empty(E, dtype=torch.float32, device=dev)
+        part = torch.empty((blocks, E), dtype=torch.float32, device=dev)
     kernel.launch(logits.data_ptr(),
                   None if bias is None else bias.data_ptr(), T, E, k,
-                  int(norm_topk), DTYPES[logits.dtype],
-                  grid_plan(T, _sm_count(dev)), top_p.data_ptr(),
-                  top_e.data_ptr(), counts.data_ptr(), nxt.data_ptr())
-    return top_p, top_e, counts
+                  int(norm_topk), DTYPES[logits.dtype], blocks,
+                  top_p.data_ptr(), top_e.data_ptr(), counts.data_ptr(),
+                  nxt.data_ptr(), None if pm is None else pm.data_ptr(),
+                  None if part is None else part.data_ptr())
+    return (top_p, top_e, counts) + ((pm,) if prob_mean else ())
+
+
+def moe_gate_bwd(logits, top_e, g_top_p, g_prob_mean, norm_topk: bool):
+    """d logits of the gate for the gradients g_top_p (T, k) float32 of
+    top_p and g_prob_mean (E,) float32 of the probability mean (either
+    may be None: zero), given the forward's picks top_e. One warp a row
+    recomputes the row's softmax, builds d probs (g_top_p through the
+    renormalisation, plus g_prob_mean / T) and writes
+    p * (d probs - sum(p * d probs)). Returns logits' shape and dtype."""
+    T, E = _check(logits, top_e.shape[1], None)
+    k = top_e.shape[1]
+    dev = logits.device
+    check("top_e", top_e, (torch.int32,), (T, k), dev)
+    if g_top_p is not None:
+        check("g_top_p", g_top_p, (torch.float32,), (T, k), dev)
+    if g_prob_mean is not None:
+        check("g_prob_mean", g_prob_mean, (torch.float32,), (E,), dev)
+    dlogits = torch.empty_like(logits)
+    bwd_kernel.launch(logits.data_ptr(), top_e.data_ptr(),
+                      None if g_top_p is None else g_top_p.data_ptr(),
+                      None if g_prob_mean is None else g_prob_mean.data_ptr(),
+                      T, E, k, int(norm_topk), DTYPES[logits.dtype],
+                      dlogits.data_ptr())
+    return dlogits
+
+
+class MoEGate(torch.autograd.Function):
+    """The gate as a differentiable op on the card: outputs (top_p,
+    top_e, counts[, prob_mean]); backward by `moe_gate_bwd`."""
+
+    @staticmethod
+    def forward(ctx, logits, bias, k, norm_topk, prob_mean):
+        out = _forward(logits, k, bias, norm_topk, prob_mean)
+        ctx.mark_non_differentiable(out[1], out[2])
+        ctx.save_for_backward(logits, out[1])
+        ctx.norm_topk = norm_topk
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_top_p, g_top_e, g_counts, g_prob_mean=None):
+        logits, top_e = ctx.saved_tensors
+        return (moe_gate_bwd(logits, top_e, _f32(g_top_p), _f32(g_prob_mean),
+                             ctx.norm_topk), None, None, None, None)
+
+
+def _f32(t):
+    """An output gradient as the kernel takes it (None: zero)."""
+    return None if t is None else t.float().contiguous()
+
+
+def moe_gate(logits, k: int, bias=None, norm_topk: bool = True,
+             prob_mean: bool = False):
+    """Softmax over experts, top-k of probs + bias (ties to the lower
+    id), the unbiased probabilities of the picks (renormalised to sum 1
+    when `norm_topk`) and the per-expert pick counts.
+
+    logits: (T, E) float32 or bfloat16; bias: (E,) float32 or None.
+    Returns (top_p (T, k) float32, top_e (T, k) int32, counts (E,)
+    int32), and with `prob_mean` the (E,) float32 mean of the
+    probabilities too. Differentiable in logits when they need a
+    gradient."""
+    if logits.device.type == "cpu":
+        return ref.moe_gate_plain(logits, k, bias, norm_topk, prob_mean)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return MoEGate.apply(logits, bias, k, norm_topk, prob_mean)
+    return _forward(logits, k, bias, norm_topk, prob_mean)

@@ -1,5 +1,6 @@
-"""Batched greedy serving of an MoE LM with GAIA expert placement online
-— the loop of the reference's `examples/serve_moe.py` as a function.
+"""Batched greedy serving of an LM, with GAIA expert placement online
+for an MoE one — the loop of the reference's `examples/serve_moe.py` as
+a function.
 
 Prefill the prompts, then decode greedily. After each decode step GAIA
 observes the step's traffic (synthesised from the generated tokens as
@@ -61,7 +62,8 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
           device=None, *, params=None, prompts=None, forced=None,
           keep_logits: bool = False) -> dict:
     """Prefill `batch` prompts of `prompt_len` tokens and decode `gen`
-    greedy steps, with GAIA expert placement (`gaia_cfg`, None for off).
+    greedy steps, with GAIA expert placement (`gaia_cfg`, None for off;
+    a dense config serves with None).
 
     Weights are drawn from `seed` on the device unless `params` is given
     (its expert leaves are then permuted in place by migrations);
@@ -76,9 +78,9 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
     CPU except the logits."""
     dev = resolve_device(device)
     lm_mod.check_ported(cfg)
-    if cfg.moe is None:
+    if cfg.moe is None and gaia_cfg is not None:
         raise ValueError(f"{cfg.name} has no MoE layers to place")
-    E, L = cfg.moe.num_experts, cfg.n_layers
+    E, L = (cfg.moe.num_experts if cfg.moe else 0), cfg.n_layers
     if gaia_cfg is not None and gaia_cfg.num_experts != E:
         raise ValueError(f"gaia_cfg.num_experts={gaia_cfg.num_experts} != "
                          f"the model's {E} experts")
@@ -160,7 +162,8 @@ def main(argv=None):
     ap.add_argument("--no-gaia", action="store_true")
     a = ap.parse_args(argv)
     cfg = get_smoke(a.arch) if a.smoke else get_arch(a.arch)
-    gcfg = None if a.no_gaia else example_gaia_config(cfg)
+    gcfg = (None if a.no_gaia or cfg.moe is None
+            else example_gaia_config(cfg))
     out = serve(cfg, gcfg, a.batch, a.prompt_len, a.gen, a.seed, a.device)
     print(json.dumps({
         "arch": cfg.name, "batch": a.batch, "prompt_len": a.prompt_len,

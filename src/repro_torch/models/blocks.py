@@ -1,5 +1,6 @@
 """Per-layer block assembly — the port of the dense/MoE transformer block
-of `repro.models.blocks` (GQA attention plus an MoE or SwiGLU FFN)."""
+of `repro.models.blocks` (GQA attention plus an MoE or SwiGLU FFN), for
+training, prefill and decode."""
 from __future__ import annotations
 
 from repro_torch.models import attention as attn
@@ -19,17 +20,20 @@ def init_tf_block(gen, cfg, moe_layer: bool):
     return p
 
 
-def _ffn(p, xm, cfg, router_bias, placement):
+def _ffn(p, xm, cfg, router_bias, placement, train=False):
     if "moe" in p:
         return moe_mod.moe_fwd(p["moe"], xm, m=cfg.moe,
-                               router_bias=router_bias, placement=placement)
+                               router_bias=router_bias, placement=placement,
+                               train=train)
     return mlp_fwd(p["mlp"], xm), {}
 
 
 def tf_block_fwd(p, x, *, cfg, router_bias=None, placement=None,
-                 return_kv=False):
-    """Full-sequence causal block (prefill). Returns (x, kv_or_None,
-    metrics)."""
+                 return_kv=False, train=False):
+    """Full-sequence causal block (train / prefill). Returns (x,
+    kv_or_None, metrics). With `train` an MoE layer adds its aux loss to
+    the metrics; attention is differentiable whenever its inputs need a
+    gradient (the kernel wrapper's autograd function)."""
     xa = rmsnorm(p["ln1"], x, cfg.norm_eps)
     kv = None
     if return_kv:
@@ -38,7 +42,7 @@ def tf_block_fwd(p, x, *, cfg, router_bias=None, placement=None,
         y = attn.gqa_fwd(p["attn"], xa, cfg=cfg)
     x = x + y
     y2, metrics = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                       router_bias, placement)
+                       router_bias, placement, train)
     return x + y2, kv, metrics
 
 

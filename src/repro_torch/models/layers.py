@@ -113,3 +113,58 @@ def lm_head_fwd(p, x):
     if w is None:
         w = p["embedding"].T
     return torch.matmul(x, w.to(COMPUTE_DT))
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy (train)
+# ---------------------------------------------------------------------------
+
+
+def _nll(logits, labels):
+    """Per position -log softmax(logits)[label], in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross-entropy in float32 over the positions where `mask` is
+    set (every position when None)."""
+    nll = _nll(logits, labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _xent_piece(h, w, labels, mask):
+    logits = torch.matmul(h, w.to(COMPUTE_DT))
+    return (_nll(logits, labels) * mask).sum(), mask.sum()
+
+
+def chunked_xent(h, p_embed, labels, mask, chunk: int = 1024):
+    """Sequence-chunked cross-entropy: each (B, chunk, V) logit block is
+    recomputed in the backward pass (`torch.utils.checkpoint`, the
+    reference's `jax.checkpoint`), so the (B, S, V) float32 logits never
+    exist. The sums run as the reference's scan: chunk by chunk, then
+    the remainder. Returns (sum_nll, sum_mask)."""
+    from torch.utils.checkpoint import checkpoint
+    w = p_embed.get("lm_head")
+    if w is None:
+        w = p_embed["embedding"].T
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    n = S // c
+    mask = mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    bounds = [(i * c, (i + 1) * c) for i in range(n)]
+    if S > n * c:
+        bounds.append((n * c, S))
+    for a, b in bounds:
+        s, k = checkpoint(_xent_piece, h[:, a:b], w, labels[:, a:b],
+                          mask[:, a:b], use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + s, cnt + k
+    return tot, cnt

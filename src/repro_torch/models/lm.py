@@ -1,11 +1,13 @@
 """Decoder-only LM assembly for transformer stacks — the port of
-`repro.models.lm`'s init / prefill / decode for the dense and MoE (GQA)
-families.
+`repro.models.lm`'s init / loss / prefill / decode for the dense and MoE
+(GQA) families.
 
 Layers are stacked (L, ...) as in the reference and driven by a Python
-loop over layers where the reference uses `lax.scan`. Caches are
-``{"main": {"k", "v"}}`` of shape (L, B, Smax, Hkv, Dh). Training
-(`loss_fn`), MLA, rwkv6, mamba2, encoder-decoder, vision tokens, MTP and
+loop over layers where the reference uses `lax.scan`; training with
+`remat="full"` recomputes each block in the backward pass
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint` of the scan
+body). Caches are ``{"main": {"k", "v"}}`` of shape (L, B, Smax, Hkv,
+Dh). MLA, rwkv6, mamba2, encoder-decoder, vision tokens, MTP and
 `first_k_dense` stacks come with later slices and raise
 `NotImplementedError`.
 """
@@ -14,11 +16,19 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import LATER
+from repro_torch.tree import tree_map
 from repro_torch.models import blocks
-from repro_torch.models.layers import (embed_fwd, init_embed, init_rmsnorm,
-                                       lm_head_fwd, rmsnorm)
+from repro_torch.models.layers import (chunked_xent, embed_fwd, init_embed,
+                                       init_rmsnorm, lm_head_fwd, rmsnorm,
+                                       softmax_xent)
+
+MOE_AUX_WEIGHT = 1e-2
+#: the reference's remat policies; "dots" (save the matmuls' outputs)
+#: has no counterpart here yet
+REMATS = ("none", "full")
 
 
 def check_ported(cfg) -> None:
@@ -33,13 +43,6 @@ def check_ported(cfg) -> None:
     if later:
         raise NotImplementedError(f"{cfg.name}: {', '.join(later)} not "
                                   f"ported yet; see {LATER}")
-
-
-def tree_map(fn, *trees):
-    """fn over the leaves of nested dicts of the same structure."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def layer(stack, i: int):
@@ -101,32 +104,83 @@ def init_extras(cfg, device) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def backbone_fwd(params, x, cfg, extras, *, collect_cache: bool = False):
-    """Returns (h, cache_or_None, metrics)."""
+def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
+                 remat: str = "full", collect_cache: bool = False):
+    """Returns (h, cache_or_None, metrics). With `train` each MoE layer
+    reports its aux loss (their mean is `moe_aux_loss`), and under
+    `remat="full"` each block runs under `torch.utils.checkpoint`: only
+    its input is kept, and the backward recomputes the rest."""
     check_ported(cfg)
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r} not in {REMATS}")
     stack = params["layers"]
     moe = cfg.moe is not None
-    kvs, counts, dropped = [], [], []
-    for i in range(cfg.n_layers):
-        x, kv, met = blocks.tf_block_fwd(
-            layer(stack, i), x, cfg=cfg,
+    kvs, counts, dropped, aux = [], [], [], []
+
+    def block(i, xc):
+        return blocks.tf_block_fwd(
+            layer(stack, i), xc, cfg=cfg,
             router_bias=extras["router_bias"][i] if moe else None,
             placement=extras["placement"][i] if moe else None,
-            return_kv=collect_cache)
+            return_kv=collect_cache, train=train)
+
+    for i in range(cfg.n_layers):
+        if train and remat == "full":
+            x, kv, met = checkpoint(block, i, x, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, kv, met = block(i, x)
         if collect_cache:
             kvs.append(kv)
         if met:
             counts.append(met["expert_counts"])
             dropped.append(met["moe_dropped"])
+            if train:
+                aux.append(met["moe_aux_loss"])
     metrics = {}
     if counts:
         metrics["expert_counts"] = torch.stack(counts)  # (L, E)
         metrics["moe_dropped"] = torch.stack(dropped).sum()
+    if aux:
+        metrics["moe_aux_loss"] = torch.stack(aux).mean()
     cache = None
     if collect_cache:
         cache = {"main": (torch.stack([k for k, _ in kvs]),
                           torch.stack([v for _, v in kvs]))}
     return x, cache, metrics
+
+
+# ---------------------------------------------------------------------------
+# Loss (train)
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch, extras, cfg, *, loss_chunk: int = 0,
+            remat: str = "full"):
+    """Next-token cross-entropy (masked by `loss_mask` when the batch has
+    one), plus MOE_AUX_WEIGHT x the MoE aux loss. `loss_chunk` > 0 takes
+    the sequence-chunked cross-entropy; `remat` as `backbone_fwd`.
+    Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    x = embed_fwd(params["embed"], tokens)
+    h, _, metrics = backbone_fwd(params, x, cfg, extras, train=True,
+                                 remat=remat)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    if loss_chunk:
+        tot, cnt = chunked_xent(h[:, :-1], params["embed"], tokens[:, 1:],
+                                mask[:, 1:], loss_chunk)
+        loss = tot / cnt.clamp(min=1.0)
+    else:
+        logits = lm_head_fwd(params["embed"], h)
+        loss = softmax_xent(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+    metrics["xent"] = loss
+    if "moe_aux_loss" in metrics:
+        loss = loss + MOE_AUX_WEIGHT * metrics["moe_aux_loss"]
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -44,10 +44,69 @@ def _capacity(tokens: int, m) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def moe_fwd(p, x, *, m, router_bias=None, placement=None):
+class _Dispatch(torch.autograd.Function):
+    """buf[dest] = xt[src]: the slot buffer (E*C + 1, D) with the dropped
+    slots in its last row. The backward sums each token's K slot
+    gradients in float32 in top-k rank order and rounds once (the
+    gather's own backward would add them with an index_put whose
+    duplicates sum in an order of the library's choosing). The last
+    row's gradient is zero: the layer never reads that row."""
+
+    @staticmethod
+    def forward(ctx, xt, src, dest, slot_dest, n_rows):
+        ctx.save_for_backward(slot_dest)
+        buf = xt.new_zeros((n_rows, xt.shape[1]))
+        buf[dest] = xt[src]
+        return buf
+
+    @staticmethod
+    def backward(ctx, g_buf):
+        slot_dest, = ctx.saved_tensors
+        acc = g_buf[slot_dest[:, 0]].float()
+        for k in range(1, slot_dest.shape[1]):
+            acc = acc + g_buf[slot_dest[:, k]].float()
+        return acc.to(g_buf.dtype), None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """out[t] = sum_k w[t, k] * y[slot_dest[t, k]] in float32, rank
+    order, rounded once to y's dtype; a dropped slot (slot_dest = E*C)
+    reads a zero row. The backward writes each kept slot's gradient
+    once (every kept slot belongs to one (token, rank)), so nothing is
+    summed in an order of the library's choosing."""
+
+    @staticmethod
+    def forward(ctx, y_flat, w, slot_dest):
+        y_pad = torch.cat([y_flat, y_flat.new_zeros((1, y_flat.shape[1]))])
+        rows = y_pad[slot_dest]  # (T, K, D)
+        ctx.save_for_backward(w, slot_dest, rows)
+        ctx.n_slots = y_flat.shape[0]
+        contrib = w.float()[:, :, None] * rows.float()
+        acc = contrib[:, 0]
+        for k in range(1, contrib.shape[1]):
+            acc = acc + contrib[:, k]
+        return acc.to(y_flat.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        w, slot_dest, rows = ctx.saved_tensors
+        g32 = g_out.float()
+        g_w = (g32[:, None, :] * rows.float()).sum(-1).to(w.dtype)
+        n = rows.shape[0] * rows.shape[1]
+        g_rows = (w.float()[:, :, None] * g32[:, None, :]).to(rows.dtype)
+        g_y = rows.new_zeros((ctx.n_slots + 1, rows.shape[2]))
+        g_y[slot_dest.reshape(-1)] = g_rows.reshape(n, -1)
+        return g_y[:ctx.n_slots], g_w, None
+
+
+def moe_fwd(p, x, *, m, router_bias=None, placement=None,
+            train: bool = False):
     """x: (B, S, d). Returns (out, metrics) with `expert_counts` (E,),
     `group_expert_counts` (1, E) and `moe_dropped`, as the reference
-    with one dispatch group. (The training slice adds `moe_aux_loss`.)
+    with one dispatch group; with `train` also `moe_aux_loss` (the
+    switch-style load-balance loss, differentiable in the router). The
+    dispatch and combine are autograd functions whose backward passes
+    sum in a fixed order.
 
     router_bias: (E,) float32 selection-only bias.
     placement: (E,) permutation: expert e is served by segment
@@ -58,8 +117,10 @@ def moe_fwd(p, x, *, m, router_bias=None, placement=None):
     xt = x.reshape(T, D)
 
     logits = torch.matmul(xt.float(), p["router"])
-    top_p, top_e, expert_counts = gate_ops.moe_gate(
-        logits, K, bias=router_bias, norm_topk=m.norm_topk_prob)
+    gate = gate_ops.moe_gate(
+        logits, K, bias=None if router_bias is None else router_bias.detach(),
+        norm_topk=m.norm_topk_prob, prob_mean=train)
+    top_p, top_e, expert_counts = gate[:3]
     top_p = top_p.to(COMPUTE_DT)
     seg_e = top_e if placement is None else placement.long()[top_e.long()]
 
@@ -76,9 +137,12 @@ def moe_fwd(p, x, *, m, router_bias=None, placement=None):
     pos_in_e = torch.arange(T * K, device=x.device) - seg_start[se]
     keep = pos_in_e < C
     dest = torch.where(keep, se * C + pos_in_e, E * C)
+    # each (token, rank) slot's row in the buffer; E * C when dropped
+    slot_dest = torch.empty_like(dest)
+    slot_dest[order] = dest
+    slot_dest = slot_dest.reshape(T, K)
 
-    buf = xt.new_zeros((E * C + 1, D))
-    buf[dest] = xt[flat_t[order]]
+    buf = _Dispatch.apply(xt, flat_t[order], dest, slot_dest, E * C + 1)
     h = buf[:E * C].reshape(E, C, D)
 
     # ---- expert FFN (SwiGLU), batched over all E segments ---------------
@@ -94,17 +158,8 @@ def moe_fwd(p, x, *, m, router_bias=None, placement=None):
     # token's K contributions are instead summed in float32 in top-k
     # rank order and rounded once: the card's run is deterministic and
     # the placement cannot change a token's output.
-    slot_dest = torch.empty_like(dest)
-    slot_dest[order] = dest
-    slot_dest = slot_dest.reshape(T, K)
-    slot_keep = slot_dest < E * C
-    safe = slot_dest.clamp(max=E * C - 1)
-    w = torch.where(slot_keep, top_p.float(), 0.0)
-    contrib = w[:, :, None] * y_flat[safe].float()  # (T, K, D)
-    acc = contrib[:, 0]
-    for k in range(1, K):
-        acc = acc + contrib[:, k]
-    out = acc.to(COMPUTE_DT).reshape(B, S, D)
+    w = torch.where(slot_dest < E * C, top_p, torch.zeros_like(top_p))
+    out = _Combine.apply(y_flat, w, slot_dest).reshape(B, S, D)
 
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], x)
@@ -114,4 +169,9 @@ def moe_fwd(p, x, *, m, router_bias=None, placement=None):
         "group_expert_counts": gcounts[None, :],
         "moe_dropped": (~keep).sum(),
     }
+    if train:
+        # switch-style load-balance loss: the token shares are
+        # constants, the probability means carry the gradient
+        frac_tokens = expert_counts.float() / (T * K)
+        metrics["moe_aux_loss"] = E * torch.sum(frac_tokens * gate[3])
     return out, metrics

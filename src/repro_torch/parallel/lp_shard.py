@@ -1117,3 +1117,13 @@ def arrive_sharded(state, cfg, ids, rows):
                         torch.full_like(lps, -1), spec)
         f["halo_need"] = f["halo_need"] | _need(fp, spec, cfg.abm)
     return f, mesh.allreduce(admitted.any(0))
+
+
+def run_sharded(key, cfg, device=None):
+    """The sharded run under the reference's name: (final_state, series,
+    counters) with the final state unsharded to id order. A thin call
+    into the engine's own runner with `sharding="lp_device"` (on the
+    card unless `device` is given)."""
+    from repro_torch.core.service import resolve_device
+    cfg = dataclasses.replace(cfg, sharding="lp_device")
+    return eng._run(key, cfg, resolve_device(device))

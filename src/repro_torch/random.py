@@ -9,7 +9,7 @@ uses, following `jax/_src/prng.py` and `jax/_src/random.py`:
   key(seed)            [0, seed mod 2**32] (64-bit seeds are off)
   split(key, n)        threefry(key, (0, i)) for i < n, words stacked
   fold_in(key, d)      threefry(key, (0, d)) on a single count pair
-  random_bits          bits1 ^ bits2 of threefry(key, (0, i))
+  random_bits, bits    bits1 ^ bits2 of threefry(key, (0, i))
   uniform              23 random mantissa bits under exponent 0, - 1
   bernoulli            uniform < p, both float32
   permutation          `_shuffle`: rounds of stable sorts on 32-bit draws
@@ -144,6 +144,12 @@ def random_bits(key, shape, device=None):
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, 0, lo)
     return (b1 ^ b2).reshape(tuple(b1.shape[:-1]) + shape)
+
+
+def bits(key, shape, device=None):
+    """`jax.random.bits(key, shape, jnp.uint32)`: the uint32 draws, held
+    in int64 (the module's word type), of `shape`."""
+    return random_bits(key, shape, device)
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,

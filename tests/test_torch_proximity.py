@@ -126,10 +126,11 @@ def test_build_is_keyed_by_source_and_needs_nvcc(tmp_path, monkeypatch):
     srcs = build.sources()
     assert {s.stem for s in srcs} == {
         "proximity_grid", "proximity_dense", "moe_gate", "flash_attention",
-        "flash_decode", "cell_sums", "capacity_assign"}
+        "flash_decode", "cell_sums", "capacity_assign",
+        "flash_attention_bwd", "moe_gate_bwd"}
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = [build.library_path(s) for s in srcs]
-    assert len(set(paths)) == 7 and all(p.parent == tmp_path for p in paths)
+    assert len(set(paths)) == 9 and all(p.parent == tmp_path for p in paths)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):

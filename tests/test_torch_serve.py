@@ -116,7 +116,7 @@ def test_full_config_as_the_repo_defines_it():
 
 def test_other_archs_raise_naming_the_roadmap():
     for name in rcfg.ARCHS:
-        if name == ARCH:
+        if name in tcfg.ARCHS:  # ported: the MoE and the dense families
             continue
         with pytest.raises(NotImplementedError, match="item 11"):
             tcfg.get_arch(name)

@@ -1,0 +1,304 @@
+"""The training path's kernels: the flash-attention backward (and the
+forward's row log-sum-exp), the MoE gate's backward and its
+probability-mean forward.
+
+On the CPU: the wrappers' differentiable plain paths, and the algorithm
+each backward kernel runs, written out in float64 torch (the row sums
+delta, P recomputed from the log-sum-exp, dS = P (dP - delta); the
+gate's d probs through the renormalisation), against autograd through
+the plain versions. On the card (`cuda` marker, skipped without a GPU):
+each kernel against its plain twin, in every dtype and head dim the
+kernels take, at GQA groups 1-8 (qwen2-7b's 7 among them), calls in a
+row bit-equal, the serve path's launches unchanged, and what the
+kernels do not take raising (qwen2-smoke's head dim 8 among it).
+
+Tolerances: float32 ATOL/RTOL 1e-5 of the largest |value| of the plain
+result (summation order); bfloat16 2e-2 of it (the kernel rounds P and
+dS to bf16 as the A operands of its products, the plain version rounds
+P once over the row); the gate's d logits 1e-5 (float32 arithmetic in
+another order). This file imports no JAX: on the card run
+`python -m pytest --noconftest -m cuda tests/test_torch_train_kernels.py`.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.moe_gate import ops as mg_ops  # noqa: E402
+from repro_torch.kernels.moe_gate import ref as mg_ref  # noqa: E402
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GATE_TOL = 1e-5
+
+
+def _rand(seed, shape, dtype=torch.float32, device="cpu", scale=1.0):
+    a = np.random.default_rng(seed).normal(size=shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)
+
+
+def _err(got, want):
+    """max |got - want| as a share of max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+# --- the algorithms, on the CPU -----------------------------------------------
+
+
+def _fa2_backward(q, k, v, dout, causal):
+    """The backward kernel's algorithm in float64: lse from the forward,
+    delta = rowsum(dO O), P = exp(s scale - lse), dS = P (dP - delta),
+    dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K; K/V gradients summed
+    over each group's heads."""
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    H, Hkv, D = q.shape[1], k.shape[1], q.shape[-1]
+    G, scale = H // Hkv, D ** -0.5
+    out = fa_ref.flash_attention_plain(q, k, v, causal)
+    lse = fa_ref.flash_attention_lse_plain(q, k, causal).double()
+    delta = (dout * out).sum(-1)
+    kx, vx = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = q @ kx.transpose(-1, -2) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        S, Skv = q.shape[2], k.shape[2]
+        keep = torch.ones(S, Skv, dtype=torch.bool).tril()
+        p = p.masked_fill(~keep, 0.0)
+    ds = p * (dout @ vx.transpose(-1, -2) - delta[..., None])
+    dq = ds @ kx * scale
+    dkx = ds.transpose(-1, -2) @ q * scale
+    dvx = p.transpose(-1, -2) @ dout
+    B, Skv = k.shape[0], k.shape[2]
+    dk = dkx.reshape(B, Hkv, G, Skv, D).sum(2)
+    dv = dvx.reshape(B, Hkv, G, Skv, D).sum(2)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("H,Hkv,S,Skv,causal", [
+    (4, 2, 37, 37, True), (7, 1, 20, 33, True), (4, 4, 24, 11, True),
+    (8, 2, 19, 29, False)])
+def test_attention_backward_algorithm_equals_autograd(H, Hkv, S, Skv,
+                                                      causal):
+    q = _rand(1, (2, H, S, 16)).double()
+    k = _rand(2, (2, Hkv, Skv, 16)).double()
+    v = _rand(3, (2, Hkv, Skv, 16)).double()
+    do = _rand(4, (2, H, S, 16)).double()
+    want = fa_ref.flash_attention_grads_plain(q, k, v, do, causal)
+    got = _fa2_backward(q, k, v, do, causal)
+    for g, w in zip(got, want):  # the plain version computes in float32
+        assert g.shape == w.shape
+        assert _err(g, w) <= 1e-5
+
+
+def test_attention_cpu_wrapper_is_differentiable():
+    """On the CPU the wrapper is the plain version, so autograd runs
+    through it; no kernel is launched."""
+    q = _rand(1, (1, 4, 21, 16)).requires_grad_()
+    k = _rand(2, (1, 2, 21, 16)).requires_grad_()
+    v = _rand(3, (1, 2, 21, 16)).requires_grad_()
+    build.reset_launches()
+    out = fa_ops.flash_attention(q, k, v, True)
+    assert out.grad_fn is not None
+    do = _rand(4, out.shape)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = fa_ref.flash_attention_grads_plain(q, k, v, do, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert build.launches()["flash_attention"] == 0
+    assert build.launches()["flash_attention_bwd"] == 0
+
+
+def _gate_backward(logits, k, norm, g_top_p, g_pm):
+    """The gate backward kernel's algorithm in float64."""
+    x = logits.double()
+    p = torch.softmax(x, -1)
+    top_e = mg_ref.moe_gate_plain(logits, k, None, norm)[1].long()
+    raw = p.gather(1, top_e)
+    g = g_top_p.double()
+    if norm:
+        s = raw.sum(-1, keepdim=True)
+        d_raw = g / s - (g * raw).sum(-1, keepdim=True) / s ** 2
+    else:
+        d_raw = g
+    dp = torch.zeros_like(p) + g_pm.double()[None] / x.shape[0]
+    dp.scatter_add_(1, top_e, d_raw)
+    return p * (dp - (p * dp).sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_gate_backward_algorithm_equals_autograd(norm):
+    logits = _rand(5, (64, 16), scale=1.5)
+    gtp, gpm = _rand(6, (64, 4)), _rand(7, (16,))
+    want = mg_ref.moe_gate_grads_plain(logits, 4, None, norm, gtp, gpm)
+    got = _gate_backward(logits, 4, norm, gtp, gpm)
+    assert _err(got, want) <= 1e-5
+
+
+def test_gate_cpu_wrapper_prob_mean_and_grads():
+    logits = _rand(8, (40, 8), scale=1.2).requires_grad_()
+    bias = _rand(9, (8,), scale=0.1)
+    top_p, top_e, counts, pm = mg_ops.moe_gate(logits, 2, bias, True,
+                                               prob_mean=True)
+    assert torch.allclose(pm, torch.softmax(logits, -1).mean(0))
+    assert int(counts.sum()) == 40 * 2
+    g = torch.autograd.grad((top_p * _rand(10, top_p.shape)).sum()
+                            + (pm * _rand(11, (8,))).sum(), logits)[0]
+    want = mg_ref.moe_gate_grads_plain(logits, 2, bias, True,
+                                       _rand(10, top_p.shape),
+                                       _rand(11, (8,)))
+    assert _err(g, want) <= 1e-6
+    # the three-output call is the serve path's, unchanged
+    assert len(mg_ops.moe_gate(logits.detach(), 2, bias)) == 3
+
+
+# --- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (run `python3 chip_smoke.py` on the card)")
+    return torch.device("cuda")
+
+
+def _fa_inputs(cuda, B, H, Hkv, S, Skv, D, dtype, seed=1):
+    q = _rand(seed, (B, H, S, D), dtype, cuda)
+    k = _rand(seed + 1, (B, Hkv, Skv, D), dtype, cuda)
+    v = _rand(seed + 2, (B, Hkv, Skv, D), dtype, cuda)
+    do = _rand(seed + 3, (B, H, S, D), dtype, cuda)
+    return q, k, v, do
+
+
+def _fa_kernel_grads(q, k, v, do, causal):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, causal)
+    return (out, *torch.autograd.grad(out, leaves, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,Skv,D,causal", [
+    (2, 8, 1, 256, 256, 64, True),     # tinyllama's group of 8
+    (1, 7, 1, 200, 200, 128, True),    # qwen2-7b's group of 7, D 128
+    (2, 4, 2, 77, 77, 16, True),       # smoke heads, ragged
+    (1, 4, 4, 130, 200, 32, True),     # causal, Skv > S
+    (2, 6, 3, 96, 50, 64, True),       # causal, Skv < S
+    (1, 4, 2, 77, 200, 128, False),    # cross, ragged
+    (2, 2, 2, 64, 64, 16, False)])
+def test_attention_backward_kernel_equals_plain(cuda, B, H, Hkv, S, Skv, D,
+                                                causal, dtype):
+    q, k, v, do = _fa_inputs(cuda, B, H, Hkv, S, Skv, D, dtype)
+    build.reset_launches()
+    out, dq, dk, dv = _fa_kernel_grads(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert build.launches()["flash_attention"] == 1
+    assert build.launches()["flash_attention_bwd"] == 1
+    f32 = [t.float() for t in (q, k, v, do)]
+    want = fa_ref.flash_attention_grads_plain(*f32, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _err(g, w) <= TOL[dtype], (name, _err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_forward_writes_the_row_logsumexp(cuda, D, dtype):
+    q, k, v, _ = _fa_inputs(cuda, 2, 8, 2, 150, 150, D, dtype)
+    out, lse = fa_ops._forward(q, k, v, True, True)
+    torch.cuda.synchronize()
+    want = fa_ref.flash_attention_lse_plain(q, k, True)
+    assert float((lse - want).abs().max()) <= 1e-3
+    # the serve path's call (no lse) gives the same output
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, True))
+
+
+@pytest.mark.cuda
+def test_attention_backward_is_deterministic(cuda):
+    q, k, v, do = _fa_inputs(cuda, 2, 8, 1, 300, 300, 64, torch.bfloat16)
+    a = _fa_kernel_grads(q, k, v, do, True)
+    b = _fa_kernel_grads(q, k, v, do, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_attention_grad_paths_and_refusals(cuda):
+    """A differentiable call goes through the autograd function; a
+    second-order gradient, or a head dim the kernels do not take (the
+    qwen2 smoke's 8), raises rather than falling back."""
+    q, k, v, do = _fa_inputs(cuda, 1, 4, 2, 64, 64, 32, torch.float32)
+    qr = q.clone().requires_grad_()
+    out = fa_ops.flash_attention(qr, k, v, True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    g, = torch.autograd.grad(out, qr, do, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), qr)
+    with torch.no_grad():
+        assert fa_ops.flash_attention(qr, k, v, True).grad_fn is None
+    q8 = torch.zeros((1, 7, 16, 8), device=cuda, requires_grad=True)
+    k8 = torch.zeros((1, 1, 16, 8), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q8, k8, k8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k", [(8192, 128, 8), (1000, 77, 5),
+                                   (333, 500, 32), (1, 8, 2)])
+def test_gate_prob_mean_and_backward_equal_plain(cuda, T, E, k, dtype):
+    logits = _rand(T + E, (T, E), dtype, cuda, scale=0.7)
+    bias = _rand(E, (E,), torch.float32, cuda, scale=0.05)
+    gtp = _rand(1, (T, k), torch.float32, cuda)
+    gpm = _rand(2, (E,), torch.float32, cuda)
+    x = logits.detach().requires_grad_()
+    build.reset_launches()
+    top_p, top_e, counts, pm = mg_ops.moe_gate(x, k, bias, True,
+                                               prob_mean=True)
+    g, = torch.autograd.grad([top_p, pm], x, [gtp, gpm])
+    torch.cuda.synchronize()
+    assert build.launches()["moe_gate"] == 1
+    assert build.launches()["moe_gate_bwd"] == 1
+    want = mg_ref.moe_gate_plain(logits, k, bias, True, prob_mean=True)
+    assert torch.equal(top_e, want[1]) and torch.equal(counts, want[2])
+    assert float((pm - want[3]).abs().max()) <= GATE_TOL
+    wg = mg_ref.moe_gate_grads_plain(logits, k, bias, True, gtp, gpm)
+    assert g.dtype == dtype
+    assert _err(g.float(), wg) <= (GATE_TOL if dtype == torch.float32
+                                   else TOL[torch.bfloat16])
+    # calls in a row are bit-equal (no float atomics)
+    again = mg_ops.moe_gate(logits, k, bias, True, prob_mean=True)[3]
+    assert torch.equal(again, pm)
+    g2, = torch.autograd.grad(
+        list(mg_ops.moe_gate(x, k, bias, True, prob_mean=True)[::3]), x,
+        [gtp, gpm])
+    assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [True, False])
+def test_gate_backward_on_ties_and_without_renormalisation(cuda, norm):
+    logits = torch.round(_rand(3, (4096, 128), device=cuda) * 2) / 2
+    gtp = _rand(4, (4096, 8), device=cuda)
+    x = logits.clone().requires_grad_()
+    top_p, top_e, _ = mg_ops.moe_gate(x, 8, None, norm)
+    g, = torch.autograd.grad(top_p, x, gtp)
+    want = mg_ref.moe_gate_plain(logits, 8, None, norm)
+    assert torch.equal(top_e, want[1])
+    wg = mg_ref.moe_gate_grads_plain(logits, 8, None, norm, gtp)
+    assert _err(g, wg) <= GATE_TOL
+
+
+@pytest.mark.cuda
+def test_gate_serve_call_is_unchanged(cuda):
+    """Without prob_mean and without a gradient the gate is the serve
+    path's one-kernel call with three outputs."""
+    logits = _rand(0, (16, 128), device=cuda)
+    build.reset_launches()
+    out = mg_ops.moe_gate(logits, 8, torch.zeros(128, device=cuda))
+    assert len(out) == 3 and build.launches()["moe_gate"] == 1
+    assert build.launches()["moe_gate_bwd"] == 0
