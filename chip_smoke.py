@@ -298,6 +298,25 @@ def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5,
         {e.name[:80] for e in ev})
 
 
+def device_split(fn, calls: int = 5) -> dict:
+    """{kernel name without its arguments: device ms per call of fn()}
+    over `calls` calls (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+kernel)(<[^>(]*>)?", e.name)
+            nm = m.group(0) if m else e.name[:60]
+            out[nm] = out.get(nm, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {k: v / calls for k, v in sorted(out.items())}
+
+
 def device_ms(fn, kernel=None, calls: int = 20):
     """Duration on the device of the CUDA kernels whose names hold
     `kernel` (every kernel when None), per call of fn(), in ms."""
@@ -1257,8 +1276,9 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
     """The backward kernel (and the forward's row log-sum-exp) against
     autograd through the plain version in float32 on the same inputs:
     each gradient within ATTN_TOL of its largest |value|; two calls
-    bit-equal. The library call is autograd through PyTorch's fused
-    attention (its backward alone, on a kept graph)."""
+    bit-equal; in bf16 at D 64 and 128 the kernels that ran are the wgmma
+    ones, never the mma.sync ones. The library call is autograd through
+    PyTorch's fused attention (its backward alone, on a kept graph)."""
     from repro_torch.kernels.flash_attention import ops, ref
     F = torch.nn.functional
     q = _randn((B, H, S, D), 11, dev, dtype)
@@ -1296,14 +1316,21 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
                                              enable_gqa=True)
     lib = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, leaves, do, retain_graph=True)
-    # three kernels a call: delta, dK/dV, dQ
-    dev_ms, per_call, names = device_profile(call, calls=5, expect=3)
+    # wgmma (bf16, D 64 / 128): prep, dK/dV, the group sum where
+    # Hkv < H, dQ; else delta, dK/dV, dQ
+    wgmma = dtype == torch.bfloat16 and D >= 64
+    expect = 3 + (wgmma and Hkv < H)
+    dev_ms, per_call, names = device_profile(call, calls=5, expect=expect)
+    old = [n for n in names if "dkdv_mma_kernel" in n or "dq_mma_kernel" in n]
+    new = [n for n in names if "wgmma_kernel" in n]
+    if wgmma and (old or len(new) != 2):
+        raise AssertionError(f"{what}: ran {names}, not the wgmma kernels")
     res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": True,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": max(errs),
            "errs_dq_dk_dv": errs, "lse_err": lse_err,
            "ms": time_ms(call, reps=5, batch=2),
            "kernel_device_ms": dev_ms, "device_kernels_per_call": per_call,
-           "device_kernels": names,
+           "device_kernels": names, "device_ms_by_kernel": device_split(call),
            "plain_ms": time_ms(lambda: ref.flash_attention_grads_plain(
                q, k, v, do, True), reps=3, batch=1, warmup=1),
            **bound(nbytes, ops_n, peak),

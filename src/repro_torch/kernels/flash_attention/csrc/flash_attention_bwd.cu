@@ -10,38 +10,92 @@
 // the forward kernel, so its gradient is this kernel (the
 // torch.autograd.Function in ../ops.py).
 //
-// Three kernels, one launch entry, no atomics (each output element is
-// written once by one thread, its sums in a fixed order, so a run's
-// gradients are the same in every run, which a bit-exact crash restart
-// needs):
-//   1. delta = rowsum(dO * O) in float32, one warp a row;
-//   2. dK, dV: one block per (b, KV head, 64-key tile), looping over the
-//      group's G query heads and over the 32-query tiles that can see
-//      the keys; P = exp(s * scale - lse) and dS = P (dP - delta) are
-//      recomputed, and dV += P^T dO, dK += dS^T Q accumulate in
-//      registers, so the group's heads are summed inside the kernel and
-//      dK, dV land at (B, Hkv, Skv, D) directly;
-//   3. dQ: one block per (b, head, 64-query tile), looping over the
-//      32-key tiles up to the causal bound; dQ += dS K.
+// No float atomics anywhere: each output element is written once, its
+// sums taken in a fixed order, so a run's gradients are the same bits in
+// every run, which a bit-exact crash restart needs.
 //
 // Bound: at tinyllama-1.1b's shape (B 2, H 32, Hkv 4, S 4,096, D 64,
 // bf16, causal) the function must read q, k, v, O, dO and write dq, dk,
 // dv (~134 MB, 40 us at 3.35 TB/s) and do 5 matrix products over the
 // causal pairs (S = QK^T, dP = dO V^T, dV, dK, dQ: 10 D flops a pair,
-// 344 GFLOP, 348 us at 989 TFLOP/s): operations bound it. This design
-// recomputes S and dP in both passes (14 D flops a pair) and runs its
-// products on mma.sync m16n8k16 (bf16 in, float32 accumulate) with
-// synchronously staged tiles; P and dS are rounded to bf16 as the A
-// operands of the dV / dK / dQ products, as FlashAttention-2 does.
-// `wgmma` and TMA, as in the forward, are later work.
+// 344 GFLOP, 348 us at 989 TFLOP/s): operations bound it. A design in
+// two passes (dK/dV by key tile, dQ by query tile) computes S and dP in
+// both, 14 D flops a pair: its floor is 487 us.
+//
+// bfloat16, D 64 and 128 (every training shape: tinyllama, the Yi and
+// Qwen families, qwen3-moe): four kernels a call.
+//   1. prep: lse log2(e) and delta = rowsum(dO * O) in float32, one warp
+//      a row, into workspace rows padded to a multiple of 64 with zeros,
+//      so that a tile of either is one 16-byte aligned bulk copy.
+//   2. dK/dV: one block per (b, query head, 128-key tile): two consumer
+//      warpgroups own 64 keys each; one lane of a producer warpgroup
+//      streams the head's query tiles (BQ = 64 queries at D 64, 32 at
+//      D 128) by TMA into a ring of 4 stages behind full / empty mbarrier
+//      pairs, with each tile's lse and delta rows beside them
+//      (cp.async.bulk). K and V of the block arrive once, first. Per tile
+//      a warpgroup issues S^T = K Q^T and dP^T = V dO^T on wgmma (ss
+//      form, both operands K-major from 128-byte-swizzled tiles, as the
+//      forward's QK^T), forms P^T = 2^(s scale log2(e) - lse log2(e))
+//      and dS^T = P^T (dP^T - delta) in registers, rounds both to bf16 as
+//      register A operands and issues dV += P^T dO and dK += dS^T Q (rs
+//      form, dO and Q under the transpose bit, as the forward's PV). The
+//      serial chain is one head's query tiles, at most 64 at tinyllama
+//      (a design that loops over the group's 8 heads in one block takes
+//      1,024); blocks run heaviest first (key tile 0 sees every
+//      query), and a warpgroup skips the tiles none of whose queries see
+//      its keys.
+//   3. the group sum: where a KV head serves G > 1 query heads, each
+//      block writes its head's float32 partial dK and dV to a (B, H,
+//      Skv, D) workspace and this pass adds the G partials of each KV
+//      head in head order (then scales dK and rounds to bf16): ~134 MB
+//      written and read again at tinyllama (~80 us at 3.35 TB/s, ~50 on
+//      the card, where part stays in L2). It was chosen over summing in a
+//      thread-block cluster through distributed shared memory because a
+//      cluster of G = 7 or 8 blocks of ~100-130 KB each must be
+//      co-resident on one GPC, which the scheduler cannot always place,
+//      and because the pass keeps one fixed order whatever G. At G = 1
+//      the block writes bf16 dK and dV itself.
+//   4. dQ: one block per (b, head, 128-query tile): two consumer
+//      warpgroups own 64 queries each, whose Q and dO arrive once by
+//      TMA; the producer streams 64-key K and V tiles through a ring of
+//      4 stages, up to the causal bound, heaviest query tile first.
+//      S = Q K^T and dP = dO V^T on the ss form, dS rounded to bf16 as
+//      the register A operand of dQ += dS K (K under the transpose bit).
+//      dQ is its own pass, so no two blocks add to one dQ element.
+// Overlap: a tile's last products (dV and dK, or dQ) stay in flight
+// while the next tile's S and dP are issued behind them, and the
+// exponentials run while dP is computed; a stage is released when the
+// products that read it are waited for. Between an issue and its wait
+// the consumers run no branch that may diverge (masks are per-thread
+// column limits with selects; every consumer thread arrives on the
+// empty barriers, a sink barrier standing in for "no tile yet"):
+// otherwise ptxas serialises every wgmma (its C7518 note).
+// Registers: 384 threads (the producer warpgroup included) leave 168 a
+// thread; the producer hands all but 24 back (setmaxnreg) and each
+// consumer takes 240, which holds, at D 128, the dK and dV accumulators
+// of 64 keys x 128 columns (64 floats each a thread) beside S^T and
+// dP^T of 32-query tiles without a spill. The launch refuses a build
+// whose pool falls short, which would otherwise never start.
+//
+// bfloat16, D 16 and 32 (the smoke configs' heads only): the wgmma
+// tiling wants 64-column swizzled boxes, so these keep mma.sync m16n8k16
+// with synchronously staged tiles: delta by one warp a row; dK, dV by
+// one block per (b, KV head, 64-key tile) looping over the group's heads
+// and the 32-query tiles that see the keys (the group summed in
+// registers); dQ by one block per (b, head, 64-query tile).
 //
 // float32: mma would round the inputs to tf32, so the float32 kernels
 // stay on scalar FMAs from shared memory (32-key and 32-query tiles,
-// four threads a row).
+// four threads a row), in the same three kernels.
+//
+// P and dS are rounded to bf16 as the A operands of the dV / dK / dQ
+// products on both bf16 paths, as FlashAttention-2 does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -625,43 +679,684 @@ int launch_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16, D 64 and 128: wgmma on TMA-fed tiles
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BOX = 64 * 128;  // a (64 rows, 64 bf16) 128-byte-swizzled box
+constexpr int NWG = 2;         // consumer warpgroups a block
+// and a producer warpgroup: one lane of its first warp issues the loads
+constexpr int WG_THREADS = (NWG + 1) * 128;
+// registers a thread after setmaxnreg: the producer's and the
+// consumers', from the pool of 168 a thread that 384 threads get
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int ST = 4;          // ring stages
+
+// rows of a (b, h) row of the padded lse / delta workspace
+inline int64_t pad64(int64_t n) { return (n + 63) / 64 * 64; }
+
+// the dK/dV pass at head dim D with BQ-query tiles
+template <int D, int BQ>
+struct Kv {
+  static constexpr int CB = D / 64;                // 64-column boxes a row
+  static constexpr int QBOX = BQ * 128;            // a (BQ rows, 64) box
+  static constexpr int KV_BYTES = NWG * CB * BOX;  // K (or V) of 128 keys
+  static constexpr int Q_BYTES = CB * QBOX;        // Q (or dO) of a tile
+  static constexpr int STAGE = 2 * Q_BYTES;
+  static constexpr int VEC = 2 * BQ * 4;           // lse2 and delta rows
+  // + 1024: the dynamic buffer is aligned up to the swizzle atom
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + ST * STAGE + ST * VEC +
+                              8 * (2 * ST + 2);
+};
+
+// the dQ pass at head dim D
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const float* lse, float* delta, void* dq,
-             void* dk, void* dv, int B, int H, int Hkv, int S, int Skv,
-             int causal, int dtype, float scale, cudaStream_t s) {
-  const int64_t rows = static_cast<int64_t>(B) * H * S;
+struct Dq {
+  static constexpr int CB = D / 64;
+  static constexpr int Q_BYTES = NWG * CB * BOX;  // Q (or dO) of 128 queries
+  static constexpr int STAGE = 2 * CB * BOX;      // K and V of 64 keys
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + ST * STAGE +
+                              8 * (2 * ST + 2);
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 64)
+    sm90::wgmma_ss_m64n64k16(d, a, b, scale_d);
+  else
+    sm90::wgmma_ss_m64n32k16(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  if constexpr (N == 64)
+    sm90::wgmma_rs_m64n64k16_tb(d, a, b);
+  else
+    sm90::wgmma_rs_m64n128k16_tb(d, a, b);
+}
+
+// an accumulator tile (rows g + 8u, columns 8j + 2t + e: element
+// 4j + 2u + e) rounded to bf16 as the register A fragments of the next
+// product's k-chunks of 16 columns
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4],
+                                           const float (&x)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    a[j / 2][2 * (j % 2)] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[j / 2][2 * (j % 2) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// 1. lse2 = lse log2(e) and delta = rowsum(dO O) of each query row, in
+// rows of s_pad (zeros past S); one warp a row
+template <int D>
+__global__ void __launch_bounds__(256)
+prep_kernel(const __nv_bfloat16* __restrict__ o,
+            const __nv_bfloat16* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ lse2,
+            float* __restrict__ delta, int S, int64_t s_pad, int64_t rows) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps
+  const int64_t bh = row / s_pad;
+  const int q = static_cast<int>(row - bh * s_pad);
+  float s = 0.f, l = 0.f;
+  if (q < S) {
+    const int64_t src = (bh * S + q) * D;
+#pragma unroll
+    for (int d = 2 * lane; d < D; d += 64) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + src + d));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dout + src + d));
+      s = fmaf(a.y, b.y, fmaf(a.x, b.x, s));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    l = lse[bh * S + q] * LOG2E;
+  }
+  if (lane == 0) {
+    lse2[row] = l;
+    delta[row] = s;
+  }
+}
+
+// 2. dK, dV of one (b, query head, 128-key tile): block w is key tile
+// w / n_bh of head w % n_bh, so the heaviest causal tiles come first
+template <int D, int BQ>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse2,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, float* __restrict__ pk,
+                  float* __restrict__ pv, int H, int Hkv, int S, int Skv,
+                  int s_pad, int n_bh, int causal, float scale,
+                  float scale_log2) {
+  using C = Kv<D, BQ>;
+  constexpr int CB = C::CB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + C::KV_BYTES;
+  const uint32_t ring = base + 2 * C::KV_BYTES;
+  const uint32_t vec = ring + ST * C::STAGE;
+  const uint32_t bars = vec + ST * C::VEC;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  const uint32_t kv_full = bars + 16 * ST;
+  const uint32_t sink = kv_full + 8;  // arrived on, never waited for
+
+  const int w = blockIdx.x;
+  const int bh = w % n_bh, k0 = (w / n_bh) * 128;
+  const int G = H / Hkv;
+  const int bkv = (bh / H) * Hkv + (bh % H) / G;
+  const int qt0 = causal ? k0 / BQ : 0;  // the first tile that sees k0
+  const int n_it = max(0, (S + BQ - 1) / BQ - qt0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), NWG * 128);  // every consumer thread
+    }
+    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(sink, NWG * 128);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NWG * 4) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NWG * 4 && lane == 0) {
+      sm90::tma_prefetch_map(&tq);
+      sm90::tma_prefetch_map(&tdo);
+      sm90::mbar_arrive_tx(kv_full, 2 * C::KV_BYTES);
+      for (int g = 0; g < NWG; ++g)
+        for (int c = 0; c < CB; ++c) {
+          const uint32_t off = (g * CB + c) * BOX;
+          sm90::tma_load_3d(k_s + off, &tk, kv_full, c * 64, k0 + 64 * g,
+                            bkv);
+          sm90::tma_load_3d(v_s + off, &tv, kv_full, c * 64, k0 + 64 * g,
+                            bkv);
+        }
+      const float* lr = lse2 + static_cast<int64_t>(bh) * s_pad;
+      const float* dr = delta + static_cast<int64_t>(bh) * s_pad;
+      for (int i = 0; i < n_it; ++i) {
+        const int s = i % ST, q0 = (qt0 + i) * BQ;
+        sm90::mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        sm90::mbar_arrive_tx(full(s), C::STAGE + C::VEC);
+        const uint32_t st = ring + s * C::STAGE;
+        for (int c = 0; c < CB; ++c) {
+          sm90::tma_load_3d(st + c * C::QBOX, &tq, full(s), c * 64, q0, bh);
+          sm90::tma_load_3d(st + C::Q_BYTES + c * C::QBOX, &tdo, full(s),
+                            c * 64, q0, bh);
+        }
+        sm90::bulk_load(vec + s * C::VEC, lr + q0, BQ * 4, full(s));
+        sm90::bulk_load(vec + s * C::VEC + BQ * 4, dr + q0, BQ * 4,
+                        full(s));
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys kw0 + r_lo and kw0 + r_lo + 8
+  sm90::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r_lo = (warp & 3) * 16 + g;
+  const int kw0 = k0 + 64 * wg;
+  const uint32_t ka = k_s + wg * CB * BOX, va = v_s + wg * CB * BOX;
+  const float* vec_p = reinterpret_cast<const float*>(
+      smem_raw + (vec - sm90::smem_addr(smem_raw)));
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+  // Tiles before i0 hold no query that sees these keys. Between a
+  // product's issue and its wait the code runs no branch that may
+  // diverge (ptxas would serialise every wgmma): every consumer thread
+  // arrives on the empty barriers, and a tile's dV / dK products stay in
+  // flight until the next tile's S^T and dP^T are queued behind them, so
+  // its stage is released then, through `prev` (the sink at first).
+  const int i0 = kw0 >= Skv ? n_it
+                            : (causal ? min(n_it, max(0, kw0 / BQ - qt0)) : 0);
+  // query column 8j + e (+ 2t) of a tile at q0 is kept where it lies in
+  // [lo_u, hi): at or after key row u, and before S
+  const int r0 = kw0 + r_lo - 2 * t;
+
+  sm90::mbar_wait(kv_full, 0);
+  for (int i = 0; i < i0; ++i) {
+    const int s = i % ST;
+    sm90::mbar_wait(full(s), (i / ST) & 1);
+    sm90::mbar_arrive(empty(s));
+  }
+  uint32_t prev = sink;
+  for (int i = i0; i < n_it; ++i) {
+    const int s = i % ST, q0 = (qt0 + i) * BQ;
+    const uint32_t qs = ring + s * C::STAGE, dos = qs + C::Q_BYTES;
+    sm90::mbar_wait(full(s), (i / ST) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {  // S^T = K Q^T
+      const uint32_t oa = (k / 4) * BOX + (k % 4) * 32;
+      const uint32_t ob = (k / 4) * C::QBOX + (k % 4) * 32;
+      wgmma_ss<BQ>(st, sm90::desc_sw128(ka + oa, 16, 1024),
+                   sm90::desc_sw128(qs + ob, 16, 1024), k > 0);
+    }
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {  // dP^T = V dO^T
+      const uint32_t oa = (k / 4) * BOX + (k % 4) * 32;
+      const uint32_t ob = (k / 4) * C::QBOX + (k % 4) * 32;
+      wgmma_ss<BQ>(dpt, sm90::desc_sw128(va + oa, 16, 1024),
+                   sm90::desc_sw128(dos + ob, 16, 1024), k > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<2>();  // the previous tile's dV, dK
+    sm90::fence_regs(dva);
+    sm90::fence_regs(dka);
+    sm90::mbar_arrive(prev);
+    sm90::wgmma_wait<1>();  // S^T
+    sm90::fence_regs(st);
+    const float* lz = vec_p + s * (2 * BQ);
+    const float* dz = lz + BQ;
+    const int hi = S - q0 - 2 * t;
+    const int lo0 = causal ? r0 - q0 : -BQ, lo1 = causal ? r0 + 8 - q0 : -BQ;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lz + 8 * j + 2 * t);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * u + e, col = 8 * j + e;
+          const float p = sm90::exp2_ftz(
+              fmaf(st[x], scale_log2, -(e ? l2.y : l2.x)));
+          st[x] = col >= (u ? lo1 : lo0) && col < hi ? p : 0.f;
+        }
+      }
+    }
+    pack_frags<BQ>(pa, st);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)  // dV += P^T dO
+      wgmma_rs_tb<D>(dva, pa[kc],
+                     sm90::desc_sw128(dos + kc * 2048, C::QBOX, 1024));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // dP^T
+    sm90::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dz + 8 * j + 2 * t);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * u + e;
+          dpt[x] = st[x] * (dpt[x] - (e ? d2.y : d2.x));  // dS^T
+        }
+      }
+    }
+    pack_frags<BQ>(da, dpt);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)  // dK += dS^T Q
+      wgmma_rs_tb<D>(dka, da[kc],
+                     sm90::desc_sw128(qs + kc * 2048, C::QBOX, 1024));
+    sm90::wgmma_commit();
+    prev = empty(s);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dva);
+  sm90::fence_regs(dka);
+  sm90::mbar_arrive(prev);
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = kw0 + r_lo + 8 * u;
+    if (row >= Skv) continue;
+    if (G == 1) {  // the head's sums are the gradients
+      const int64_t o = (static_cast<int64_t>(bkv) * Skv + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + o + c) = pack_bf16(
+            dka[4 * j + 2 * u] * scale, dka[4 * j + 2 * u + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o + c) =
+            pack_bf16(dva[4 * j + 2 * u], dva[4 * j + 2 * u + 1]);
+      }
+    } else {  // this head's float32 partials, for the group sum
+      const int64_t o = (static_cast<int64_t>(bh) * Skv + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(pk + o + c) =
+            make_float2(dka[4 * j + 2 * u], dka[4 * j + 2 * u + 1]);
+        *reinterpret_cast<float2*>(pv + o + c) =
+            make_float2(dva[4 * j + 2 * u], dva[4 * j + 2 * u + 1]);
+      }
+    }
+  }
+}
+
+// 3. dk, dv (B, Hkv, Skv, D) = the sums over each group's G heads of the
+// float32 partials (B, H, Skv, D), in head order; four values a thread
+__global__ void __launch_bounds__(256)
+sum_heads_kernel(const float4* __restrict__ pk, const float4* __restrict__ pv,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int64_t n4, int64_t plane4,
+                 int G, float scale) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const int64_t bkv = i / plane4;
+  const int64_t src = bkv * G * plane4 + (i - bkv * plane4);
+  float4 a = pk[src], b = pv[src];
+  for (int g = 1; g < G; ++g) {
+    const float4 x = pk[src + g * plane4], y = pv[src + g * plane4];
+    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+    b.x += y.x, b.y += y.y, b.z += y.z, b.w += y.w;
+  }
+  *reinterpret_cast<uint2*>(dk + 4 * i) = make_uint2(
+      pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
+  *reinterpret_cast<uint2*>(dv + 4 * i) =
+      make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+// 4. dQ of one (b, head, 128-query tile): block w is query tile
+// n_qb - 1 - w / n_bh (causal: the heaviest first) of head w % n_bh
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse2,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int H, int Hkv, int S,
+                int Skv, int s_pad, int n_bh, int n_qb, int causal,
+                float scale, float scale_log2) {
+  using C = Dq<D>;
+  constexpr int CB = C::CB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + C::Q_BYTES;
+  const uint32_t ring = base + 2 * C::Q_BYTES;
+  const uint32_t bars = ring + ST * C::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  const uint32_t q_full = bars + 16 * ST;
+  const uint32_t sink = q_full + 8;
+
+  const int w = blockIdx.x;
+  const int bh = w % n_bh;
+  const int q0 = (causal ? n_qb - 1 - w / n_bh : w / n_bh) * 128;
+  const int bkv = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int kv_tiles = (Skv + 63) / 64;
+  // the key tiles the block's last query sees
+  const int n_kt =
+      causal ? min(kv_tiles, (min(q0 + 128, S) - 1) / 64 + 1) : kv_tiles;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), NWG * 128);
+    }
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(sink, NWG * 128);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NWG * 4) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NWG * 4 && lane == 0) {
+      sm90::tma_prefetch_map(&tk);
+      sm90::tma_prefetch_map(&tv);
+      sm90::mbar_arrive_tx(q_full, 2 * C::Q_BYTES);
+      for (int g = 0; g < NWG; ++g)
+        for (int c = 0; c < CB; ++c) {
+          const uint32_t off = (g * CB + c) * BOX;
+          sm90::tma_load_3d(q_s + off, &tq, q_full, c * 64, q0 + 64 * g, bh);
+          sm90::tma_load_3d(do_s + off, &tdo, q_full, c * 64, q0 + 64 * g,
+                            bh);
+        }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % ST;
+        sm90::mbar_wait(empty(s), ((kt / ST) & 1) ^ 1);
+        sm90::mbar_arrive_tx(full(s), C::STAGE);
+        const uint32_t st = ring + s * C::STAGE;
+        for (int c = 0; c < CB; ++c) {
+          sm90::tma_load_3d(st + c * BOX, &tk, full(s), c * 64, kt * 64, bkv);
+          sm90::tma_load_3d(st + (CB + c) * BOX, &tv, full(s), c * 64,
+                            kt * 64, bkv);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: queries qw0 + r_lo and qw0 + r_lo + 8
+  sm90::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r_lo = (warp & 3) * 16 + g;
+  const int qw0 = q0 + 64 * wg;
+  const int n_kt_w =
+      qw0 >= S ? 0
+               : (causal ? min(kv_tiles, (min(qw0 + 64, S) - 1) / 64 + 1)
+                         : kv_tiles);
+  float l2[2], dl[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = qw0 + r_lo + 8 * u;
+    const int64_t o = static_cast<int64_t>(bh) * s_pad + row;
+    l2[u] = row < S ? lse2[o] : 0.f;
+    dl[u] = row < S ? delta[o] : 0.f;
+  }
+  const uint32_t qa = q_s + wg * CB * BOX, doa = do_s + wg * CB * BOX;
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t da[4][4];
+  // as in the dK/dV pass: no divergent branch while a product is in
+  // flight; a tile's dQ product is waited for (and its stage released)
+  // once the next tile's S and dP are queued. Key column 8j + e (+ 2t)
+  // of a tile at k0 is kept below lim_u: before Skv and, causal, at or
+  // before query row u.
+  const int row0 = qw0 + r_lo - 2 * t;
+
+  sm90::mbar_wait(q_full, 0);
+  uint32_t prev = sink;
+  for (int kt = 0; kt < n_kt_w; ++kt) {
+    const int s = kt % ST, k0 = kt * 64;
+    const uint32_t ks = ring + s * C::STAGE, vs = ks + CB * BOX;
+    sm90::mbar_wait(full(s), (kt / ST) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {  // S = Q K^T
+      const uint32_t off = (k / 4) * BOX + (k % 4) * 32;
+      sm90::wgmma_ss_m64n64k16(sc, sm90::desc_sw128(qa + off, 16, 1024),
+                               sm90::desc_sw128(ks + off, 16, 1024), k > 0);
+    }
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {  // dP = dO V^T
+      const uint32_t off = (k / 4) * BOX + (k % 4) * 32;
+      sm90::wgmma_ss_m64n64k16(dp, sm90::desc_sw128(doa + off, 16, 1024),
+                               sm90::desc_sw128(vs + off, 16, 1024), k > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<2>();  // the previous tile's dQ product
+    sm90::fence_regs(dqa);
+    sm90::mbar_arrive(prev);
+    sm90::wgmma_wait<1>();  // S
+    sm90::fence_regs(sc);
+    const int kv_lim = Skv - k0 - 2 * t;
+    const int lim0 = causal ? min(kv_lim, row0 - k0 + 1) : kv_lim;
+    const int lim1 = causal ? min(kv_lim, row0 + 8 - k0 + 1) : kv_lim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * u + e;
+          const float p = sm90::exp2_ftz(fmaf(sc[x], scale_log2, -l2[u]));
+          sc[x] = 8 * j + e < (u ? lim1 : lim0) ? p : 0.f;
+        }
+      }
+    }
+    sm90::wgmma_wait<0>();  // dP
+    sm90::fence_regs(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] *= dp[x] - dl[(x >> 1) & 1];  // dS
+    pack_frags<64>(da, sc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // dQ += dS K
+      wgmma_rs_tb<D>(dqa, da[kc], sm90::desc_sw128(ks + kc * 2048, BOX, 1024));
+    sm90::wgmma_commit();
+    prev = empty(s);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dqa);
+  sm90::mbar_arrive(prev);
+  for (int kt = n_kt_w; kt < n_kt; ++kt) {  // past this warpgroup's bound
+    const int s = kt % ST;
+    sm90::mbar_wait(full(s), (kt / ST) & 1);
+    sm90::mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = qw0 + r_lo + 8 * u;
+    if (row >= S) continue;
+    const int64_t o = (static_cast<int64_t>(bh) * S + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dq + o + 8 * j + 2 * t) = pack_bf16(
+          dqa[4 * j + 2 * u] * scale, dqa[4 * j + 2 * u + 1] * scale);
+  }
+}
+
+// float32 elements of the workspace the wgmma path needs
+inline int64_t wgmma_workspace(int B, int H, int Hkv, int S, int Skv,
+                               int D) {
+  const int64_t n_bh = static_cast<int64_t>(B) * H;
+  int64_t n = 2 * n_bh * pad64(S);
+  if (H != Hkv) n += 2 * n_bh * Skv * D;
+  return n;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, int bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// the consumers' setmaxnreg.inc waits for registers the pool lacks: a
+// kernel built with fewer than 168 a thread would never start, so it is
+// refused instead
+template <typename K>
+cudaError_t pool_fits(K kern) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return e;
+  return a.numRegs * WG_THREADS >=
+                 128 * PRODUCER_REGS + NWG * 128 * CONSUMER_REGS
+             ? cudaSuccess
+             : cudaErrorInvalidConfiguration;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* ws, void* dq,
+                 void* dk, void* dv, int B, int H, int Hkv, int S, int Skv,
+                 int causal, float scale, cudaStream_t s) {
+  constexpr int BQ = D == 64 ? 64 : 32;
+  using T = __nv_bfloat16;
+  const int64_t n_bh = static_cast<int64_t>(B) * H;
+  const int64_t s_pad = pad64(S);
+  const int n_kb = (Skv + 127) / 128, n_qb = (S + 127) / 128;
+  if (n_bh * n_kb > INT32_MAX || n_bh * n_qb > INT32_MAX ||
+      s_pad > INT32_MAX || (n_bh * s_pad + 7) / 8 > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* lse2 = ws;
+  float* delta = ws + n_bh * s_pad;
+  float* pk = delta + n_bh * s_pad;  // partials (G > 1 only)
+  float* pv = pk + n_bh * Skv * D;
+  const uint64_t nkv = static_cast<uint64_t>(B) * Hkv;
+  CUtensorMap mq, mdo, mq64, mdo64, mk, mv;
+  int e = sm90::make_map_bf16_3d(&mq, q, D, S, n_bh, BQ);
+  if (e == 0) e = sm90::make_map_bf16_3d(&mdo, dout, D, S, n_bh, BQ);
+  if (e == 0) e = sm90::make_map_bf16_3d(&mq64, q, D, S, n_bh, 64);
+  if (e == 0) e = sm90::make_map_bf16_3d(&mdo64, dout, D, S, n_bh, 64);
+  if (e == 0) e = sm90::make_map_bf16_3d(&mk, k, D, Skv, nkv, 64);
+  if (e == 0) e = sm90::make_map_bf16_3d(&mv, v, D, Skv, nkv, 64);
+  if (e != 0) return e;
+  auto kv = dkdv_wgmma_kernel<D, BQ>;
+  auto kq = dq_wgmma_kernel<D>;
+  cudaError_t ce = allow_smem(kv, Kv<D, BQ>::SMEM);
+  if (ce == cudaSuccess) ce = allow_smem(kq, Dq<D>::SMEM);
+  if (ce == cudaSuccess) ce = pool_fits(kv);
+  if (ce == cudaSuccess) ce = pool_fits(kq);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+
+  const int64_t rows = n_bh * s_pad;
+  prep_kernel<D><<<static_cast<int>((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, lse2,
+      delta, S, s_pad, rows);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const float scale_log2 = scale * LOG2E;
+  kv<<<static_cast<int>(n_bh * n_kb), WG_THREADS, Kv<D, BQ>::SMEM, s>>>(
+      mq, mk, mv, mdo, lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      pk, pv, H, Hkv, S, Skv, static_cast<int>(s_pad),
+      static_cast<int>(n_bh), causal, scale, scale_log2);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  if (H != Hkv) {
+    const int64_t plane4 = static_cast<int64_t>(Skv) * D / 4;
+    const int64_t n4 = nkv * plane4;
+    const int64_t blocks = (n4 + 255) / 256;
+    if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    sum_heads_kernel<<<static_cast<int>(blocks), 256, 0, s>>>(
+        reinterpret_cast<const float4*>(pk),
+        reinterpret_cast<const float4*>(pv), static_cast<T*>(dk),
+        static_cast<T*>(dv), n4, plane4, H / Hkv, scale);
+    ce = cudaGetLastError();
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+  }
+  kq<<<static_cast<int>(n_bh * n_qb), WG_THREADS, Dq<D>::SMEM, s>>>(
+      mq64, mk, mv, mdo64, lse2, delta, static_cast<T*>(dq), H, Hkv, S, Skv,
+      static_cast<int>(s_pad), static_cast<int>(n_bh), n_qb, causal, scale,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// delta = rowsum(dO * O) into the first B H S floats of the workspace
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int64_t rows,
+                 int D, cudaStream_t s) {
   const int64_t blocks = (rows + 7) / 8;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  delta_kernel<T><<<static_cast<int>(blocks), 256, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the path of a call, by dtype and head dim: bf16 at D 64 and 128 on
+// wgmma, bf16 at D 16 and 32 on mma.sync, float32 on scalar FMAs
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* ws, int64_t ws_floats,
+             void* dq, void* dk, void* dv, int B, int H, int Hkv, int S,
+             int Skv, int causal, int dtype, float scale, cudaStream_t s) {
+  const int64_t rows = static_cast<int64_t>(B) * H * S;
   if (dtype == 1) {
-    delta_kernel<__nv_bfloat16><<<static_cast<int>(blocks), 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dout), delta, rows, D);
-  } else {
-    delta_kernel<float><<<static_cast<int>(blocks), 256, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), delta,
-        rows, D);
+    if constexpr (D >= 64) {
+      if (ws_floats < wgmma_workspace(B, H, Hkv, S, Skv, D))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wgmma<D>(q, k, v, o, dout, lse, ws, dq, dk, dv, B, H,
+                             Hkv, S, Skv, causal, scale, s);
+    } else {
+      if (ws_floats < rows) return static_cast<int>(cudaErrorInvalidValue);
+      const int e = launch_delta<__nv_bfloat16>(o, dout, ws, rows, D, s);
+      if (e != 0) return e;
+      return launch_bf16<D>(q, k, v, dout, lse, ws, dq, dk, dv, B, H, Hkv,
+                            S, Skv, causal, scale, s);
+    }
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dtype == 1)
-    return launch_bf16<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv,
-                          S, Skv, causal, scale, s);
-  return launch_f32<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, S,
+  if (ws_floats < rows) return static_cast<int>(cudaErrorInvalidValue);
+  const int e = launch_delta<float>(o, dout, ws, rows, D, s);
+  if (e != 0) return e;
+  return launch_f32<D>(q, k, v, dout, lse, ws, dq, dk, dv, B, H, Hkv, S,
                        Skv, causal, scale, s);
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, Skv, D); lse,
-// delta: float32 (B, H, S) (delta is scratch the launch fills); all
-// contiguous, one dtype (0 = float32, 1 = bfloat16; bf16 pointers
-// 16-byte aligned). D in {16, 32, 64, 128}; `scale` is the forward's.
+// q, o, dout, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, Skv, D); lse:
+// float32 (B, H, S); ws: float32 scratch of ws_floats elements that the
+// launch fills (bf16 at D 64 / 128: 2 B H S' with S' = S rounded up to
+// 64, and 2 B H Skv D more when H != Hkv; else B H S); all contiguous,
+// one dtype (0 = float32, 1 = bfloat16; bf16 pointers 16-byte aligned).
+// D in {16, 32, 64, 128}; `scale` is the forward's.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int H, int Hkv, int S, int Skv, int D, int causal,
-    int dtype, float scale, void* stream) {
+    const void* dout, const void* lse, void* ws, int64_t ws_floats,
+    void* dq, void* dk, void* dv, int B, int H, int Hkv, int S, int Skv,
+    int D, int causal, int dtype, float scale, void* stream) {
   if (B < 0 || Hkv <= 0 || H % Hkv || S < 0 || Skv <= 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -675,11 +1370,11 @@ extern "C" int flash_attention_bwd_launch(
     return static_cast<int>(e);
   }
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-#define FAB_CASE(DD)                                                       \
-  case DD:                                                                 \
-    return launch_d<DD>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, S, \
-                        Skv, causal, dtype, scale, s)
+  float* w = static_cast<float*>(ws);
+#define FAB_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return launch_d<DD>(q, k, v, o, dout, l, w, ws_floats, dq, dk, dv, B, H, \
+                        Hkv, S, Skv, causal, dtype, scale, s)
   switch (D) {
     FAB_CASE(16);
     FAB_CASE(32);

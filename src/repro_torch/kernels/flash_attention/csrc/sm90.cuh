@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of flash_attention.cu, written as
-// inline PTX: mbarriers, TMA tile loads, wgmma and its shared-memory
-// descriptors, and the host-side tensor-map encoder reached through the
+// Hopper (sm_90a) building blocks of flash_attention.cu and
+// flash_attention_bwd.cu, written as inline PTX: mbarriers, TMA tile and
+// bulk loads, wgmma and its shared-memory descriptors, and the host-side tensor-map encoder reached through the
 // runtime (so the library links no -lcuda).
 #pragma once
 
@@ -86,6 +86,18 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       : "memory");
 }
 
+// one contiguous run of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from global into shared memory; completion is counted
+// on `bar` in bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -142,6 +154,19 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// hand registers back to (dec) or take them from (inc) the block's pool:
+// every warp of a warpgroup runs the same one; the kernel is compiled
+// with a register limit (launch bounds) that sizes the pool
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // keep the compiler from moving reads of accumulator registers across
 // a wgmma wait
 template <int R>
@@ -173,6 +198,24 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       "{" SM90_R32 "}, %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32, f32) = A (64 x 16) * B (16 x 32) [+ d if scale_d]: both
+// from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_D8(0), SM90_D8(8)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

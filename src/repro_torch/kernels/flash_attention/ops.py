@@ -5,9 +5,9 @@
 On a CUDA tensor a wrapper checks its inputs, allocates its outputs with
 `torch.empty`, launches the kernel on the current stream and counts the
 launch; a launch CUDA refuses raises. In bf16 at D 64 and 128 the
-forward's TMA tensor maps are encoded on the host inside the launch. On
-a CPU tensor it runs the plain version (`ref.py`), and only then: there
-is no fallback from the card to the plain code.
+TMA tensor maps of the forward and the backward are encoded on the host
+inside the launch. On a CPU tensor it runs the plain version (`ref.py`),
+and only then: there is no fallback from the card to the plain code.
 
 A call that needs a gradient (grad mode on and q, k or v requiring one)
 goes through `FlashAttention`, a `torch.autograd.Function`: its forward
@@ -39,8 +39,8 @@ kernel = build.CudaKernel(
 
 bwd_kernel = build.CudaKernel(
     "flash_attention_bwd", "flash_attention_bwd_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-     _I, ctypes.c_float],
+    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _P, _P, _P, _I, _I, _I,
+     _I, _I, _I, _I, _I, ctypes.c_float],
     errors="flash_attention_bwd_error_string")
 
 
@@ -79,15 +79,27 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     return out, lse
 
 
+def bwd_workspace(B, H, Hkv, S, Skv, D, dtype) -> int:
+    """float32 elements of the backward's scratch (the C entry refuses
+    less). bf16 at D 64 / 128 (the wgmma path): lse log2(e) and delta in
+    rows of S rounded up to 64, and, where a KV head serves several query
+    heads, every query head's float32 dk and dv partials; the other
+    paths: delta."""
+    if dtype == torch.bfloat16 and D >= 64:
+        n = 2 * B * H * (-(-S // 64) * 64)
+        return n + (2 * B * H * Skv * D if H != Hkv else 0)
+    return B * H * S
+
+
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
     """Gradients (dq, dk, dv) of `flash_attention(q, k, v, causal)` for
     the output gradient `dout`, from the forward's `out` and row
     log-sum-exp `lse` (B, H, S) float32. dk and dv are (B, Hkv, Skv, D):
-    the group's query heads are summed inside the kernel. One call is one
-    launch of the C entry, which runs three kernels: the row sums
-    delta = rowsum(dout * out), then dk/dv by key tile and dq by query
-    tile, each written once (no atomics: the result is the same in every
-    run)."""
+    the group's query heads are summed in head order. One call is one
+    launch of the C entry: in bf16 at D 64 / 128 four kernels (the row
+    sums, dk/dv per query head, the group sum where Hkv < H, dq), else
+    three (the row sums, dk/dv per KV head, dq); every output written
+    once (no atomics: the result is the same in every run)."""
     B, H, Hkv, S, Skv, D = _check(q, k, v)
     dev = q.device
     check("out", out, (q.dtype,), (B, H, S, D), dev)
@@ -95,14 +107,15 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
     check("lse", lse, (torch.float32,), (B, H, S), dev)
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v, out, dout)):
-        raise ValueError("flash_attention_bwd: the bf16 kernel stages its "
-                         "tiles by 16-byte loads, which need 16-byte "
-                         "aligned tensors")
+        raise ValueError("flash_attention_bwd: the bf16 kernels load their "
+                         "tiles by TMA or 16-byte loads, which need "
+                         "16-byte aligned tensors")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    n_ws = bwd_workspace(B, H, Hkv, S, Skv, D, q.dtype)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
     bwd_kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      ws.data_ptr(), n_ws, dq.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), B, H, Hkv, S, Skv, D, int(causal),
                       DTYPES[q.dtype], D ** -0.5)
     return dq, dk, dv

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.service import resolve_device
 from repro_torch.data.pipeline import DataConfig, make_pipeline
 from repro_torch.runtime.watchdog import Watchdog
 
@@ -52,11 +53,12 @@ def _sync(state) -> None:
 class Trainer:
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  init_state: Callable[[], tuple], data_cfg: DataConfig,
-                 log: Callable[[str], None] = print, device="cpu"):
+                 log: Callable[[str], None] = print, device=None):
         """step_fn(params, opt_state, extras, batch) ->
         (params, opt_state, extras, metrics); init_state() builds the
         step-0 (params, opt_state, extras) on `device`, where a resumed
-        run's checkpoint is restored too."""
+        run's checkpoint is restored too: the card unless the caller
+        passes device="cpu" (raises where no GPU is visible)."""
         self.cfg = cfg
         self.step_fn = step_fn
         self.init_state = init_state
@@ -64,7 +66,7 @@ class Trainer:
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
         self.watchdog = Watchdog()
         self.log = log
-        self.device = device
+        self.device = resolve_device(device)
         #: wall seconds of each step run, in order (steps end in a sync)
         self.step_seconds = []
 

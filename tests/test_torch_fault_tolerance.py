@@ -146,7 +146,8 @@ def _toy_trainer(ckpt_dir, total=12):
     cfg = TrainerConfig(total_steps=total, checkpoint_every=4,
                         checkpoint_dir=str(ckpt_dir), log_every=100,
                         async_save=False)
-    return Trainer(cfg, step_fn, init_state, data_cfg, log=lambda s: None)
+    return Trainer(cfg, step_fn, init_state, data_cfg, log=lambda s: None,
+                   device="cpu")
 
 
 def test_crash_restart_bit_exact(tmp_path):
@@ -184,6 +185,23 @@ def test_final_save_written_once_or_not_at_all(tmp_path):
     tr.cfg.save_final = False
     tr.run()
     assert CheckpointManager(str(tmp_path / "b")).latest_step() == 4
+
+
+def test_trainer_runs_on_the_card_unless_told(tmp_path, monkeypatch):
+    """Without a device the Trainer takes the card, where a resumed run
+    restores its checkpoint; where no GPU is visible it raises as the
+    Engine does, and device="cpu" is the CPU."""
+    def make(**kw):
+        return Trainer(TrainerConfig(checkpoint_dir=str(tmp_path)),
+                       lambda *a: a, lambda: ({}, {}, {}),
+                       DataConfig(vocab_size=8, seq_len=4, global_batch=1),
+                       log=lambda s: None, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert make().device == torch.device("cuda")
 
 
 def _lm_trainer(ckpt_dir, arch, device="cpu", steps=4):

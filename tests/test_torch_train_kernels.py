@@ -10,7 +10,9 @@ the plain versions. On the card (`cuda` marker, skipped without a GPU):
 each kernel against its plain twin, in every dtype and head dim the
 kernels take, at GQA groups 1-8 (qwen2-7b's 7 among them), calls in a
 row bit-equal, the serve path's launches unchanged, and what the
-kernels do not take raising (qwen2-smoke's head dim 8 among it).
+kernels do not take raising (qwen2-smoke's head dim 8 among it); the
+backward's wgmma path (bf16 at D 64 and 128) at groups 1, 2, 7 and 8,
+ragged and Skv != S, with the names of the kernels that ran.
 
 Tolerances: float32 ATOL/RTOL 1e-5 of the largest |value| of the plain
 result (summation order); bfloat16 2e-2 of it (the kernel rounds P and
@@ -91,6 +93,20 @@ def test_attention_backward_algorithm_equals_autograd(H, Hkv, S, Skv,
     for g, w in zip(got, want):  # the plain version computes in float32
         assert g.shape == w.shape
         assert _err(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, 2 * 2 * 8 * 192 + 2 * 2 * 8 * 130 * 64),
+    (torch.bfloat16, 128, 2 * 2 * 8 * 192 + 2 * 2 * 8 * 130 * 128),
+    (torch.bfloat16, 32, 2 * 8 * 130), (torch.float32, 64, 2 * 8 * 130)])
+def test_backward_workspace_size(dtype, D, want):
+    """The backward's float32 scratch: the wgmma path's padded lse and
+    delta rows (S 130 -> 192) and the group's partials; delta elsewhere;
+    no partials when every query head has its own KV head."""
+    assert fa_ops.bwd_workspace(2, 8, 2, 130, 130, D, dtype) == want
+    if D >= 64 and dtype == torch.bfloat16:
+        assert fa_ops.bwd_workspace(2, 8, 8, 130, 130, D, dtype) == \
+            2 * 2 * 8 * 192
 
 
 def test_attention_cpu_wrapper_is_differentiable():
@@ -224,6 +240,83 @@ def test_attention_backward_is_deterministic(cuda):
     b = _fa_kernel_grads(q, k, v, do, True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+#: (B, H, Hkv, S, Skv, causal) of the wgmma path's card tests: groups of
+#: 1, 2, 7 (qwen2-7b) and 8 (tinyllama, qwen3-moe), ragged S, causal with
+#: Skv < S and Skv > S, and one non-causal call
+WGMMA_CASES = [(1, 8, 8, 200, 200, True), (2, 4, 2, 256, 256, True),
+               (1, 7, 1, 333, 333, True), (2, 8, 1, 384, 384, True),
+               (1, 4, 2, 300, 130, True), (1, 4, 2, 130, 300, True),
+               (1, 2, 1, 5, 9, True), (1, 8, 1, 77, 200, False)]
+
+
+def _fa_bwd_call(cuda, B, H, Hkv, S, Skv, D, causal, seed=1):
+    """(inputs, call) of one backward launch from the forward's out and
+    lse."""
+    q, k, v, do = _fa_inputs(cuda, B, H, Hkv, S, Skv, D, torch.bfloat16,
+                             seed)
+    out, lse = fa_ops._forward(q, k, v, causal, True)
+    return (q, k, v, do), lambda: fa_ops.flash_attention_bwd(
+        q, k, v, out, do, lse, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,S,Skv,causal", WGMMA_CASES)
+def test_attention_backward_wgmma_equals_plain(cuda, B, H, Hkv, S, Skv, D,
+                                               causal):
+    (q, k, v, do), call = _fa_bwd_call(cuda, B, H, Hkv, S, Skv, D, causal)
+    build.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert build.launches()["flash_attention_bwd"] == 1
+    want = fa_ref.flash_attention_grads_plain(
+        *(t.float() for t in (q, k, v, do)), causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all(), name
+        assert _err(g, w) <= TOL[torch.bfloat16], (name, _err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(32, 4, 64), (28, 4, 128),
+                                     (32, 4, 128)])
+def test_attention_backward_calls_bit_equal(cuda, H, Hkv, D):
+    """tinyllama's and qwen3-moe's group of 8 and qwen2-7b's of 7: the
+    group sum runs in head order, so calls in a row give equal bits."""
+    _, call = _fa_bwd_call(cuda, 1, H, Hkv, 320, 320, D, True, seed=5)
+    a, b = call(), call()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,new", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 32, False), (torch.float32, 64, False)])
+def test_attention_backward_kernel_names(cuda, dtype, D, new):
+    """bf16 at D 64 and 128 runs the wgmma kernels and none of the
+    mma.sync ones; the other dtypes and head dims keep theirs."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = _fa_inputs(cuda, 1, 8, 2, 192, 192, D, dtype)
+    out, lse = fa_ops._forward(q, k, v, True, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa_ops.flash_attention_bwd(q, k, v, out, do, lse, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    wgmma = [n for n in names if "wgmma_kernel" in n]
+    old = [n for n in names if "dkdv_mma_kernel" in n or "dq_mma_kernel" in n]
+    if new:
+        assert any("dkdv_wgmma_kernel" in n for n in wgmma), names
+        assert any("dq_wgmma_kernel" in n for n in wgmma), names
+        assert any("sum_heads_kernel" in n for n in names), names
+        assert not old, names
+    else:
+        assert not wgmma, names
+        assert bool(old) == (dtype == torch.bfloat16), names
 
 
 @pytest.mark.cuda
