@@ -686,15 +686,10 @@ def check_dense(n, area, rng, seed, dev, all_senders=False, replicas=1,
             "library_ms": None}
 
 
-def check_cell_sums(n, area, seed, dev, mobility="flock", replicas=1):
-    """The flock's cell-sum kernel against its plain version (the
-    in-order CPU sum), bit for bit, on an exp6 flock world (with
-    `replicas` > 1, that many stacked as a batched step gives them:
-    R * ncell^2 cells, one launch); the library call is `index_add_` of
-    the five quantities (atomics, in no fixed order, so not the same
-    bits)."""
+def cell_sums_inputs(n, area, seed, dev, mobility="flock", replicas=1):
+    """(pos, vec, grid) of an exp6 world of the given mobility (with
+    `replicas` > 1, that many stacked as a batched step gives them)."""
     from repro_torch.core import neighbors
-    from repro_torch.kernels.cell_sums import ops, ref
     sts = [scenario_world(mobility, seed + r, dev, n_se=n, area=area)
            for r in range(replicas)]
     cfg = sts[0][0]
@@ -702,7 +697,18 @@ def check_cell_sums(n, area, seed, dev, mobility="flock", replicas=1):
     vec = torch.stack([st["mob"] for _, st in sts]).view(-1, n, 2)
     if replicas == 1:
         pos, vec = pos[0], vec[0]
-    grid = neighbors.build_grid(pos, cfg.grid_spec())
+    return pos, vec, neighbors.build_grid(pos, cfg.grid_spec())
+
+
+def check_cell_sums(n, area, seed, dev, mobility="flock", replicas=1):
+    """The flock's cell-sum kernel against its plain version (the
+    in-order CPU sum), bit for bit, on an exp6 flock world (with
+    `replicas` > 1, that many stacked as a batched step gives them:
+    R * ncell^2 cells, one launch); the library call is `index_add_` of
+    the five quantities (atomics, in no fixed order, so not the same
+    bits)."""
+    from repro_torch.kernels.cell_sums import ops, ref
+    pos, vec, grid = cell_sums_inputs(n, area, seed, dev, mobility, replicas)
     got = ops.cell_sums(pos, vec, grid)
     pos, vec = pos.reshape(-1, 2), vec.reshape(-1, 2)
     want = ref.cell_sums_plain(pos, vec, grid)
@@ -735,50 +741,117 @@ def check_cell_sums(n, area, seed, dev, mobility="flock", replicas=1):
             "plain_ms": time_ms(lambda: ref.cell_sums_plain(pos, vec, grid),
                                 batch=1),
             **bound(nbytes, 5 * n),
-            "library_ms": time_ms(lambda: acc.index_add_(1, cell, vals))}
+            "library_ms": time_ms(lambda: acc.index_add_(1, cell, vals)),
+            "library_device_ms": device_ms(
+                lambda: acc.index_add_(1, cell, vals))}
 
 
-def check_capacity_assign(kind, seed, dev):
-    """The partitioners' capacity-assignment kernel (with its device
-    sort) against its plain version (a host loop), exactly, on the cost
-    matrices the partitioners give it on an exp6 hotspot world: kmeans'
-    squared distances to 4 centroids, bestresponse's negated affinities
-    on the stripe map."""
+def assign_inputs(kind, seed, dev):
+    """(cost, weights, caps) as the partitioners give them to the
+    capacity assignment: kmeans' squared distances to 4 centroids and
+    bestresponse's negated affinities on the stripe map of an exp6
+    hotspot world; kmeans' on the engine's open world (9,800 of 10k
+    slots live: weights 0 and 1, dead rows at 0) and on exp5's 50k-SE
+    world with 8 LPs; and kmeans' with weights of 0.5, 1 and 2."""
     from repro_torch import random as trandom
     from repro_torch.core import partition as part
-    from repro_torch.kernels.capacity_assign import ops, ref
+    from repro_torch.core.abm import ABMConfig, init_abm
     from repro_torch.kernels.proximity import ops as prox
-    cfg, st = scenario_world("hotspot", seed, dev)
+    if kind == "exp5":
+        cfg = ABMConfig(**EXP5_FULL)
+        st = init_abm(trandom.key(seed), cfg, dev)
+    else:
+        cfg, st = scenario_world("hotspot", seed, dev)
     pos, n, L = st["pos"], cfg.n_se, cfg.n_lp
     w = torch.ones(n, device=dev)
-    if kind == "kmeans":
-        cent = trandom.uniform(trandom.key(seed), (L, 2), maxval=cfg.area,
-                               device=dev)
-        cost = part._toroidal_dist2(pos, cent, cfg.area, True)
-    else:
+    if kind == "open":
+        live = dead_rows((n,), 200, dev, tail=False)
+        w, pos = live.float(), torch.where(live[:, None], pos, 0.0)
+    elif kind == "uneven":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w = torch.tensor([0.5, 1.0, 2.0], device=dev)[
+            torch.randint(0, 3, (n,), generator=g, device=dev)]
+    if kind == "bestresponse":
         lp = part.partition(None, pos, w, part.PartitionConfig(
             backend="stripe"))
         aff = prox.proximity_lp_counts(pos, lp, torch.ones_like(lp).bool(),
                                        L, cfg.area, cfg.interaction_range)
         cost = -aff.float()
-    caps = part.capacity_bounds(part.PartitionConfig(n_lp=L), n)
+    else:
+        cent = trandom.uniform(trandom.key(seed), (L, 2), maxval=cfg.area,
+                               device=dev)
+        cost = part._toroidal_dist2(pos, cent, cfg.area, True)
+    return cost, w, part.capacity_bounds(part.PartitionConfig(n_lp=L),
+                                         w.sum().item())
+
+
+#: (kind, seed) of the capacity-assign shapes `chip_smoke.py` checks
+ASSIGN_SHAPES = (("kmeans", 11), ("bestresponse", 12), ("open", 13),
+                 ("exp5", 14), ("uneven", 15))
+
+
+def check_capacity_assign(kind, seed, dev):
+    """The partitioners' capacity-assignment kernel (with its device
+    sort) against its plain version (a host loop), exactly, on
+    `assign_inputs(kind, seed)`. Weights of 0 or 1 must take the
+    kernel's rounds, others its serial scan; each call prints its
+    rounds and branch."""
+    from repro_torch.kernels.capacity_assign import ops, ref
+    cost, w, caps = assign_inputs(kind, seed, dev)
+    n, L = cost.shape
     got = ops.capacity_assign(cost, w, caps)
+    rounds = int(ops.last_rounds())
     want = ref.capacity_assign_plain(cost, w, caps)
     torch.cuda.synchronize()
     err = int((got.cpu() - want.cpu()).abs().max())
     if err != 0:
         raise AssertionError(f"capacity_assign kernel ({kind}): "
                              f"max_abs_err={err}")
+    unit = bool(((w == 0) | (w == 1)).all())
+    if (rounds > 0) != unit:
+        raise AssertionError(f"capacity_assign ({kind}): {rounds} rounds "
+                             f"with {'unit' if unit else 'uneven'} weights")
     call = lambda: ops.capacity_assign(cost, w, caps)  # noqa: E731
     # the costs and weights read once, the map written once; one
     # comparison a pair
-    return {"n": n, "n_lp": L, "cost": kind, "max_abs_err": err,
-            "ms": time_ms(call, reps=10, batch=2),
+    return {"n": n, "n_lp": L, "cost": kind, "live": int((w > 0).sum()),
+            "branch": "rounds" if rounds else "serial", "rounds": rounds,
+            "max_abs_err": err, "ms": time_ms(call, reps=10, batch=2),
             "kernel_device_ms": device_ms(call, "capacity_assign_kernel"),
             **call_profile(call),
             "plain_ms": time_ms(lambda: ref.capacity_assign_plain(
                 cost, w, caps), reps=3, batch=1, warmup=1),
             **bound(n * L * 4 + n * 8, n * L), "library_ms": None}
+
+
+@contextmanager
+def capacity_assign_rounds():
+    """Record the rounds tensor of every capacity-assign launch made in
+    the block (no sync: each launch writes its own); yields the list."""
+    from repro_torch.kernels.capacity_assign import ops
+    real, got = ops.capacity_assign, []
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        if out.is_cuda:
+            got.append(ops.last_rounds())
+        return out
+    with mock.patch.object(ops, "capacity_assign", call):
+        yield got
+
+
+def engine_rounds(phase: str, got: list) -> None:
+    """Every capacity-assign launch of an engine phase took the rounds
+    branch (the engine's weights are 0 or 1)."""
+    rounds = torch.cat(got).tolist() if got else []
+    serial = rounds.count(0)
+    emit(phase="capacity_assign_rounds", of=phase, calls=len(rounds),
+         serial_calls=serial, rounds_min=min(rounds, default=None),
+         rounds_max=max(rounds, default=None))
+    if serial:
+        raise AssertionError(f"{phase}: {serial} of {len(rounds)} "
+                             f"capacity-assign launches took the serial "
+                             f"branch")
 
 
 def launch_floor():
@@ -3206,27 +3279,36 @@ def main():
                                             mobility="hotspot"),
                             check_cell_sums(10_000, 10_000.0, 40, dev,
                                             replicas=4)],
-              "capacity_assign": [check_capacity_assign("kmeans", 11, dev),
-                                  check_capacity_assign("bestresponse", 12,
-                                                        dev)],
+              "capacity_assign": [check_capacity_assign(kind, seed, dev)
+                                  for kind, seed in ASSIGN_SHAPES],
               **check_lm_kernels(dev)}
     emit(phase="kernels_checked", shapes=shapes)
     seconds["kernels"] = time.perf_counter() - t_kernels
     served = timed("serve", serve_phase, a.gen, dev)
     launches, solo = timed("main", main_path, a.steps, a.dense_steps, dev)
-    replica_launches = timed("replicas", replicas, a.steps,
-                             a.replica_scenario_steps, a.tune_steps, solo,
-                             dev)
-    sharded_launches = timed("sharded", sharded, a.steps, a.exp5_steps,
-                             a.shard_steps, a.shard_churn, solo,
-                             smi, dev)
+    # the engine's capacity-assign launches must all take the rounds
+    with capacity_assign_rounds() as got:
+        replica_launches = timed("replicas", replicas, a.steps,
+                                 a.replica_scenario_steps, a.tune_steps,
+                                 solo, dev)
+    engine_rounds("replicas", got)
+    with capacity_assign_rounds() as got:
+        sharded_launches = timed("sharded", sharded, a.steps, a.exp5_steps,
+                                 a.shard_steps, a.shard_churn, solo,
+                                 smi, dev)
+    engine_rounds("sharded", got)
     del solo
-    scenario_launches = timed("scenarios", scenarios, a.epi_steps,
-                              a.scenario_steps, dev)
+    with capacity_assign_rounds() as got:
+        scenario_launches = timed("scenarios", scenarios, a.epi_steps,
+                                  a.scenario_steps, dev)
+    engine_rounds("scenarios", got)
     for stem in ("cell_sums", "capacity_assign"):
         launches[stem] = scenario_launches[stem]
-    service_launches = timed("service", service, min(300, a.steps),
-                             a.service_iters, a.service_requests, smi, dev)
+    with capacity_assign_rounds() as got:
+        service_launches = timed("service", service, min(300, a.steps),
+                                 a.service_iters, a.service_requests, smi,
+                                 dev)
+    engine_rounds("service", got)
     obs_launches = timed("obs", obs, a.steps, a.tune_steps, a.cpu_steps,
                          smi, dev)
     timed("scale", scale, a.scale_steps, dev)

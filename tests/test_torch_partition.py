@@ -126,6 +126,49 @@ def test_capacity_assign_equal(seed):
     bits_equal(want, got.numpy())
 
 
+def _unit_case(kind, seed):
+    """(cost, weights, caps) with weights of exactly 0 or 1: the calls
+    the engine and the partitioners make, and edge shapes."""
+    r = np.random.default_rng(seed)
+    n, L = {"L1": (200, 1), "L64": (300, 64), "N1": (1, 4)}.get(kind,
+                                                               (600, 4))
+    cost = r.random((n, L)).astype(np.float32) * 5e7  # squared distances
+    w = np.ones(n, np.float32)
+    if kind == "open":  # an open world's live mask
+        w[r.random(n) < 0.05] = 0.0
+    elif kind == "ties":
+        cost = r.integers(0, 3, (n, L)).astype(np.float32)
+    elif kind == "negzero":  # bestresponse's -aff: -0.0 ties +0.0
+        cost = -r.integers(0, 3, (n, L)).astype(np.float32)
+        cost[r.random((n, L)) < 0.3] = 0.0
+        w[r.random(n) < 0.05] = 0.0
+    caps = np.ceil(np.full((L,), w.sum() / L, np.float32))
+    if kind == "tight":  # unit SEs no LP admits take the fallback
+        caps = np.floor(caps * np.float32(0.8)).astype(np.float32)
+        caps[1] += 3.0
+    return cost, w, caps
+
+
+@pytest.mark.parametrize("kind", ["ones", "open", "ties", "negzero", "tight",
+                                  "L1", "L64", "N1"])
+def test_capacity_assign_rounds_equal(kind):
+    """The kernel's rounds for weights of 0 or 1 (their plain-torch
+    mirror) and the plain scan against the jitted reference, bit for
+    bit on the int32 map."""
+    from repro_torch.kernels.capacity_assign import ref as ca_ref
+    cost, w, caps = _unit_case(kind, 7)
+    want = np.asarray(jax.jit(rpart.capacity_assign)(cost, w, caps))
+    tc, tw = torch.from_numpy(cost), torch.from_numpy(w)
+    got, rounds = ca_ref.capacity_assign_rounds(tc, tw, caps)
+    bits_equal(want, got.numpy())
+    bits_equal(want, ca_ref.capacity_assign_plain(tc, tw, caps).numpy())
+    assert rounds >= 1
+    if kind == "tight":
+        assert (np.bincount(want[w == 1], minlength=4) > caps).any()
+    with pytest.raises(ValueError, match="weights of 0 or 1"):
+        ca_ref.capacity_assign_rounds(tc, tw * 0.5 + 0.25, caps)
+
+
 def test_uses_prev_and_validation():
     for b in tpart.PARTITION_BACKENDS:
         assert tpart.uses_prev(tpart.PartitionConfig(backend=b)) == \

@@ -76,13 +76,16 @@ def _assign_case(kind, seed, device):
     """(cost, weights, caps) of the shapes the partitioners give the
     scan, plus tie-heavy and over-tight ones."""
     g = torch.Generator().manual_seed(seed)
-    if kind == "kmeans":  # squared distances, 10k x 4
+    if kind in ("kmeans", "open"):  # squared distances, 10k x 4
         n, L = 10_000, 4
+        cost = torch.rand((n, L), generator=g) * 5e7
+    elif kind == "exp5":  # exp5's world: 50k SEs x 8 LPs
+        n, L = 50_000, 8
         cost = torch.rand((n, L), generator=g) * 5e7
     elif kind == "bestresponse":  # negated integer affinities
         n, L = 10_000, 4
         cost = -torch.randint(0, 40, (n, L), generator=g).float()
-    elif kind == "ties":
+    elif kind in ("ties", "ties_uneven"):
         n, L = 3_000, 7
         cost = torch.randint(0, 3, (n, L), generator=g).float()
     elif kind == "wide":
@@ -91,14 +94,23 @@ def _assign_case(kind, seed, device):
     else:  # "tight": uneven weights, caps below the total: fallbacks
         n, L = 2_000, 4
         cost = torch.rand((n, L), generator=g)
-    if kind == "tight":
+    if kind in ("tight", "ties_uneven"):
         weights = torch.tensor([0.5, 1.0, 2.0])[
             torch.randint(0, 3, (n,), generator=g)]
-        caps = np.full((L,), float(weights.sum()) / L * 0.9, np.float32)
     else:
         weights = torch.ones(n)
-        caps = tpart.capacity_bounds(tpart.PartitionConfig(n_lp=L), n)
+    if kind == "open":  # the engine's live mask: 9,800 of 10k slots
+        weights[torch.randperm(n, generator=g)[:200]] = 0.0
+    if kind == "tight":
+        caps = np.full((L,), float(weights.sum()) / L * 0.9, np.float32)
+    else:
+        caps = tpart.capacity_bounds(tpart.PartitionConfig(n_lp=L),
+                                     float(weights.sum()))
     return cost.to(device), weights.to(device), caps
+
+
+#: the kinds whose weights are 0 or 1: the kernel runs its rounds
+UNIT_KINDS = ("kmeans", "bestresponse", "ties", "wide", "open", "exp5")
 
 
 @pytest.mark.parametrize("kind", ["kmeans", "ties", "tight"])
@@ -113,6 +125,16 @@ def test_capacity_assign_plain_fills_within_caps(kind):
         assert (load.numpy() <= caps).all()
     else:  # some SEs fit nowhere and take the roomiest LP
         assert (load.numpy() > caps).any()
+
+
+@pytest.mark.parametrize("kind", ["kmeans", "bestresponse", "ties", "open"])
+def test_capacity_assign_rounds_mirror_equals_plain(kind):
+    """The kernel's rounds (their plain-torch mirror) give the greedy
+    scan's map on the unit-weight shapes the kernel test takes."""
+    cost, w, caps = _assign_case(kind, 0, "cpu")
+    got, rounds = ca_ref.capacity_assign_rounds(cost, w, caps)
+    assert torch.equal(got, ca_ref.capacity_assign_plain(cost, w, caps))
+    assert 1 <= rounds <= 10
 
 
 @pytest.fixture
@@ -152,15 +174,23 @@ def test_cell_sums_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["kmeans", "bestresponse", "ties", "wide",
-                                  "tight"])
+                                  "open", "exp5", "tight", "ties_uneven"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_capacity_assign_kernel_equals_plain_on_card(cuda, kind, seed):
+    """One launch a call, bit-equal to the plain scan; weights of 0 or 1
+    take the rounds, weights of 0.5 and 2.0 the serial scan."""
     cost, w, caps = _assign_case(kind, seed, cuda)
     build.reset_launches()
     got = ca_ops.capacity_assign(cost, w, caps)
     assert build.launches(ca_ops.KERNELS) == {"capacity_assign": 1}
+    rounds = int(ca_ops.last_rounds())
     want = ca_ref.capacity_assign_plain(cost.cpu(), w.cpu(), caps)
     assert torch.equal(got.cpu(), want)
+    if kind in UNIT_KINDS:
+        assert rounds == ca_ref.capacity_assign_rounds(
+            cost.cpu(), w.cpu(), caps)[1]
+    else:
+        assert rounds == 0
 
 
 @pytest.mark.cuda

@@ -191,6 +191,43 @@ def test_cell_sums_equal_the_reference_scatter(seed):
     bits_equal(want, got.numpy())
 
 
+def test_cell_sums_negative_zero_and_crowded_cell():
+    """-0.0 headings (a cell whose members all head -0.0 sums to +0.0,
+    as the reference's 0 + (-0.0)) and one cell of 300 members: the
+    plain in-order sums equal the reference's jitted scatter-add, and
+    the block means its eager `cell_block_mean`, bit for bit."""
+    rc, tc, pos, mob = _flock_world(2)
+    spec = rc.abm.grid_spec()
+    nc = spec.ncell
+    r = np.random.default_rng(2)
+    w = rc.abm.area / nc
+    pos[:300] = (np.array([3.2, 5.5]) * w + r.uniform(0, 0.5 * w, (300, 2))
+                 ).astype(np.float32)
+    mob[r.random(mob.shape) < 0.3] = -0.0
+    cell = np.asarray(rnb.cell_ids(pos, spec))
+    mob[cell == cell[400]] = -0.0  # a cell heading -0.0 throughout
+    assert np.bincount(cell).max() >= 300
+
+    @jax.jit
+    def bins(pos, vec):
+        c = rnb.cell_ids(pos, spec)
+        vals = [pos[:, 0] * 0 + 1, pos[:, 0], pos[:, 1], vec[:, 0],
+                vec[:, 1]]
+        return [jax.numpy.zeros((nc * nc,), jax.numpy.float32).at[c].add(
+            v, mode="drop") for v in vals]
+
+    want = np.stack([np.asarray(b) for b in bins(pos, mob)])
+    tpos, tmob = torch.tensor(pos), torch.tensor(mob)
+    grid = tnb.build_grid(tpos, tc.abm.grid_spec())
+    got = cs_ref.cell_sums_plain(tpos, tmob, grid)
+    bits_equal(want, got.numpy())
+    assert not np.signbit(want[3:, cell[400]]).any()
+    means = rnb.cell_block_mean(pos, mob, spec, rc.abm.area)
+    for m, g in zip(means, tnb.cell_block_mean(tpos, tmob, tc.abm.grid_spec(),
+                                               tc.abm.area)):
+        bits_equal(m, g.numpy())
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_cell_block_mean_equals_eager_reference(seed):
     """The block means bit for bit against the reference run eagerly

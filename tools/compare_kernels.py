@@ -1,7 +1,8 @@
 """Time the kernels of several checkouts of this repo in turns, on one
-GPU: the two proximity kernels and the MoE gate.
+GPU: the two proximity kernels, the MoE gate, the cell sums and the
+capacity assignment.
 
-    python3 tools/compare_kernels.py DIR [DIR ...]
+    python3 tools/compare_kernels.py DIR [DIR ...] [--only FAMILY ...]
 
 Each DIR is the root of a checkout: `.` for this one, or an earlier
 commit unpacked under a git-ignored directory
@@ -9,10 +10,12 @@ commit unpacked under a git-ignored directory
 one process that imports DIR's `repro_torch`, builds its kernels into
 DIR's own build directory, and calls its wrappers
 (`ops.proximity_lp_counts_grid`, `ops.proximity_lp_counts`,
-`moe_gate.ops.moe_gate`: every build keeps their signatures, whatever
-its C interface) at the shapes `chip_smoke.py` checks first, each
-result held to DIR's plain version (proximity counts exactly; the
-gate's ids and counts exactly, its probabilities within
+`moe_gate.ops.moe_gate`, `cell_sums.ops.cell_sums`,
+`capacity_assign.ops.capacity_assign`: every build keeps their
+signatures, whatever its C interface) at the shapes `chip_smoke.py`
+checks first (every shape of the last two), each result held to DIR's
+plain version (proximity counts, cell-sum bits and assignment maps
+exactly; the gate's ids and counts exactly, its probabilities within
 `chip_smoke.GATE_TOL`). The turns run in the order given and then
 reversed (A B, B A). Each prints one JSON line per shape: the call
 (CUDA events over batches of 10, median of 20, as `chip_smoke.py`'s
@@ -86,7 +89,52 @@ def gate(tree: Path, cs, dev):
                 **cs.call_profile(call))
 
 
-def turn(tree: Path):
+#: chip_smoke.py's cell-sum shapes: (n, area, seed, mobility, replicas)
+CELL_SUMS = ((10_000, 10_000.0, 9, "flock", 1),
+             (10_000, 10_000.0, 10, "hotspot", 1),
+             (10_000, 10_000.0, 40, "flock", 4))
+
+
+def cell_sums(tree: Path, cs, dev):
+    import torch
+    from repro_torch.kernels.cell_sums import ops, ref
+    for n, area, seed, mobility, replicas in CELL_SUMS:
+        pos, vec, grid = cs.cell_sums_inputs(n, area, seed, dev, mobility,
+                                             replicas)
+        call = lambda: ops.cell_sums(pos, vec, grid)  # noqa: E731
+        want = ref.cell_sums_plain(pos.reshape(-1, 2), vec.reshape(-1, 2),
+                                   grid)
+        if not torch.equal(call().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{tree}: cell_sums on {replicas} x "
+                                 f"{mobility} differs from its plain version")
+        cs.emit(tree=str(tree), kernel="cell_sums", n=n, layout=mobility,
+                replicas=replicas, ms=cs.time_ms(call),
+                kernel_device_ms=cs.device_ms(call, "cell_sums_kernel"),
+                **cs.call_profile(call))
+
+
+def capacity_assign(tree: Path, cs, dev):
+    import torch
+    from repro_torch.kernels.capacity_assign import ops, ref
+    for kind, seed in cs.ASSIGN_SHAPES:
+        cost, w, caps = cs.assign_inputs(kind, seed, dev)
+        call = lambda: ops.capacity_assign(cost, w, caps)  # noqa: E731
+        want = ref.capacity_assign_plain(cost, w, caps)
+        if not torch.equal(call().cpu(), want.cpu()):
+            raise AssertionError(f"{tree}: capacity_assign on {kind} "
+                                 f"differs from its plain version")
+        cs.emit(tree=str(tree), kernel="capacity_assign", cost=kind,
+                n=cost.shape[0], n_lp=cost.shape[1],
+                ms=cs.time_ms(call, reps=10, batch=2),
+                kernel_device_ms=cs.device_ms(call, "capacity_assign_kernel"),
+                **cs.call_profile(call))
+
+
+FAMILIES = {"proximity": proximity, "gate": gate, "cell_sums": cell_sums,
+            "capacity_assign": capacity_assign}
+
+
+def turn(tree: Path, only):
     """One tree's kernels at every shape (runs in its own process)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs  # puts this checkout's src/ first: undo it
@@ -96,19 +144,21 @@ def turn(tree: Path):
     if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {repro_torch.__file__}, not {tree}'s")
     dev = torch.device("cuda")
-    proximity(tree, cs, dev)
-    gate(tree, cs, dev)
+    for family in only:
+        FAMILIES[family](tree, cs, dev)
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("trees", nargs="+", type=Path,
                    help="roots of checkouts, each with src/repro_torch")
+    p.add_argument("--only", nargs="+", choices=list(FAMILIES),
+                   default=list(FAMILIES), help="kernel families to time")
     p.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     trees = [t.resolve() for t in a.trees]
     if a.turn:
-        turn(trees[0])
+        turn(trees[0], a.only)
         return
     sys.path.insert(0, str(ROOT))
     import torch
@@ -119,8 +169,8 @@ def main():
     env = {k: v for k, v in os.environ.items()
            if k != "REPRO_TORCH_BUILD_DIR"}
     for tree in trees + trees[::-1]:
-        subprocess.run([sys.executable, __file__, "--turn", str(tree)],
-                       check=True, env=env)
+        subprocess.run([sys.executable, __file__, "--turn", str(tree),
+                        "--only", *a.only], check=True, env=env)
 
 
 if __name__ == "__main__":
