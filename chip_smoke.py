@@ -274,11 +274,12 @@ def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5,
     calls (torch.profiler); ms is None when none ran.
 
     Every call issues the same kernels, so a count that is not a whole
-    multiple of `calls` (or, given `expect`, not `expect` a call) means
-    the trace lost records (seen once in 19 of 20 moe_gate launches, and
-    for two thirds of the attention backward's launches): the calls are
-    traced again, up to `tries` times in all, and the last trace is
-    returned."""
+    multiple of `calls` (or, given `expect`, not `expect` a call), or
+    none at all, means the trace lost records (seen once in 19 of 20
+    moe_gate launches, for two thirds of the attention backward's
+    launches, and for every gate backward launch of a trace late in the
+    script): the calls are traced again, up to `tries` times in all, and
+    the last trace is returned."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -291,7 +292,8 @@ def device_profile(fn, kernel=None, calls: int = 20, tries: int = 5,
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and (kernel is None or kernel in e.name)]
-        if len(ev) == expect * calls if expect else len(ev) % calls == 0:
+        if len(ev) == expect * calls if expect else (
+                ev and len(ev) % calls == 0):
             break
     ms = sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
     return (ms if ev else None), len(ev) / calls, sorted(
@@ -1414,10 +1416,11 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
 
 
 def check_moe_gate_bwd(T, E, k, dtype, dev, ties=False):
-    """The gate's probability-mean forward and its backward kernel
-    against the plain version and autograd through it: ids and counts
-    exact, the mean and d logits within GATE_TOL of their largest
-    |value|, two calls bit-equal. No single library call computes it."""
+    """The gate's probability-mean forward (one kernel a call) and its
+    backward kernel against the plain version and autograd through it:
+    ids and counts exact, the mean and d logits within GATE_TOL of their
+    largest |value|, two calls bit-equal. No single library call
+    computes it."""
     from repro_torch.kernels.moe_gate import ops, ref
     logits = _randn((T, E), T + E + 7, dev, dtype, scale=0.7)
     if ties:
@@ -1449,12 +1452,18 @@ def check_moe_gate_bwd(T, E, k, dtype, dev, ties=False):
     ops_n = T * E * 8  # max, sub, exp, sum, div, dot, sub and mul a value
     call = lambda: ops.moe_gate_bwd(logits, top_e, gtp, gpm, True)  # noqa
     fwd = lambda: ops.moe_gate(logits, k, b, True, prob_mean=True)  # noqa
-    fwd_ms, fwd_per_call, fwd_names = device_profile(fwd, expect=2)
+    fwd_ms, fwd_per_call, fwd_names = device_profile(fwd, expect=1)
+    if fwd_per_call != 1:
+        raise AssertionError(f"{what}: the forward with the mean issued "
+                             f"{fwd_names}, {fwd_per_call} a call, not one "
+                             f"kernel")
     # the forward's bytes and operations (check_moe_gate's) and the mean's
     fwd_bytes = T * E * esize + E * 4 + T * k * 8 + E * 4 + E * 4
     fwd_ops = T * E * (5 + 2 * k) + T * E
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return {"T": T, "E": E, "k": k, "dtype": str(dtype).split(".")[-1],
-            "ties": ties, "max_abs_err": err, "prob_mean_err": pm_err,
+            "ties": ties, "blocks": ops.grid_plan(T, sms),
+            "max_abs_err": err, "prob_mean_err": pm_err,
             "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "moe_gate_bwd_kernel"),
             "plain_ms": time_ms(lambda: ref.moe_gate_grads_plain(

@@ -11,13 +11,17 @@ refuses raises. On a CPU tensor it runs the plain version (`ref.py`),
 and only then: there is no fallback from the card to the plain code.
 
 With `prob_mean` the forward also returns the (E,) mean of the
-probabilities over the rows (the aux loss's `frac_probs`): each block
-writes its rows' sums into a partials buffer and a second kernel of the
-same launch adds the blocks' partials in block order, so the mean is the
-same in every run. A call whose logits need a gradient goes through
-`MoEGate`, a `torch.autograd.Function` whose backward is the backward
-kernel: gradients flow into top_p and the mean; the ids and counts have
-none, and the bias selects only.
+probabilities over the rows (the aux loss's `frac_probs`) from the same
+one kernel: each block adds its rows' sums, as fixed-point integers,
+into a device-wide accumulator and draws a ticket, and the last block
+divides the exact total by T (`csrc/moe_gate.cu`), so the mean is the
+same in every run. The accumulators and the ticket live in one scratch
+buffer a device (`_scratch`) that each such launch leaves zero for the
+next, under the same one-stream ordering as `_counts`. A call whose
+logits need a gradient goes through `MoEGate`, a
+`torch.autograd.Function` whose backward is the backward kernel
+(persistent blocks, a warp a row at a time): gradients flow into top_p
+and the mean; the ids and counts have none, and the bias selects only.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.kernels.moe_gate import ref
 MAX_E = 512
 #: the largest k (one pick per lane of a warp)
 MAX_K = 32
-#: rows in flight a block, a warp each (csrc/moe_gate.cu WARPS)
+#: rows in flight a block, a warp each (WARPS of csrc/moe_gate.cu and
+#: csrc/moe_gate_bwd.cu)
 WARPS = 16
 #: the most blocks a call keeps on each SM: the grid is persistent, and
 #: fewer blocks add fewer histograms into the counts
@@ -51,7 +56,7 @@ kernel = build.CudaKernel(
 
 bwd_kernel = build.CudaKernel(
     "moe_gate_bwd", "moe_gate_bwd_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     errors="moe_gate_bwd_error_string")
 
 
@@ -87,6 +92,24 @@ def _counts(device, E: int):
     return counts, nxt
 
 
+#: uint64 accumulators a probability-mean launch spreads its blocks'
+#: atomics over (csrc/moe_gate.cu COPIES)
+COPIES = 8
+#: {device: the probability-mean launches' scratch}
+_SCRATCH = {}
+
+
+def _scratch(device):
+    """The device's scratch of the probability-mean launches: COPIES x
+    MAX_E uint64 accumulators and a ticket (int64 words), zeroed once
+    here and left zero by every launch."""
+    t = _SCRATCH.get(device)
+    if t is None:
+        t = _SCRATCH[device] = torch.zeros(COPIES * MAX_E + 1,
+                                           dtype=torch.int64, device=device)
+    return t
+
+
 def _check(logits, k: int, bias):
     on_cuda("moe_gate", logits)
     if logits.dim() != 2:
@@ -110,26 +133,27 @@ def _forward(logits, k: int, bias, norm_topk: bool, prob_mean: bool):
     top_e = torch.empty((T, k), dtype=torch.int32, device=dev)
     counts, nxt = _counts(dev, E)
     blocks = grid_plan(T, _sm_count(dev))
-    pm = part = None
+    pm = scratch = None
     if prob_mean:
         pm = torch.empty(E, dtype=torch.float32, device=dev)
-        part = torch.empty((blocks, E), dtype=torch.float32, device=dev)
+        scratch = _scratch(dev).data_ptr()
     kernel.launch(logits.data_ptr(),
                   None if bias is None else bias.data_ptr(), T, E, k,
                   int(norm_topk), DTYPES[logits.dtype], blocks,
                   top_p.data_ptr(), top_e.data_ptr(), counts.data_ptr(),
                   nxt.data_ptr(), None if pm is None else pm.data_ptr(),
-                  None if part is None else part.data_ptr())
+                  scratch)
     return (top_p, top_e, counts) + ((pm,) if prob_mean else ())
 
 
 def moe_gate_bwd(logits, top_e, g_top_p, g_prob_mean, norm_topk: bool):
     """d logits of the gate for the gradients g_top_p (T, k) float32 of
     top_p and g_prob_mean (E,) float32 of the probability mean (either
-    may be None: zero), given the forward's picks top_e. One warp a row
-    recomputes the row's softmax, builds d probs (g_top_p through the
-    renormalisation, plus g_prob_mean / T) and writes
-    p * (d probs - sum(p * d probs)). Returns logits' shape and dtype."""
+    may be None: zero), given the forward's picks top_e. A warp
+    recomputes a row's softmax, builds d probs in registers (g_top_p
+    through the renormalisation, plus g_prob_mean / T) and writes
+    p * (d probs - sum(p * d probs)); the grid is `grid_plan`'s, the
+    rows walked by grid stride. Returns logits' shape and dtype."""
     T, E = _check(logits, top_e.shape[1], None)
     k = top_e.shape[1]
     dev = logits.device
@@ -143,7 +167,7 @@ def moe_gate_bwd(logits, top_e, g_top_p, g_prob_mean, norm_topk: bool):
                       None if g_top_p is None else g_top_p.data_ptr(),
                       None if g_prob_mean is None else g_prob_mean.data_ptr(),
                       T, E, k, int(norm_topk), DTYPES[logits.dtype],
-                      dlogits.data_ptr())
+                      grid_plan(T, _sm_count(dev)), dlogits.data_ptr())
     return dlogits
 
 

@@ -153,6 +153,118 @@ def test_gate_backward_algorithm_equals_autograd(norm):
     assert _err(got, want) <= 1e-5
 
 
+def _butterfly(x):
+    """A 32-lane xor-shuffle sum over the last axis in float32, as
+    `__shfl_xor_sync` at offsets 16 .. 1: every lane ends with the same
+    value."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ o]
+    return x
+
+
+def _epl(E):
+    """Experts a lane holds (csrc/gate_rows.cuh): the least of 1, 2, 4,
+    8, 16 with 32 * EPL >= E."""
+    return next(n for n in (1, 2, 4, 8, 16) if 32 * n >= E)
+
+
+def _gate_backward_lanes(logits, k, norm, g_top_p, g_pm):
+    """The backward kernel's lane layout in float32: lane l holds
+    experts [l EPL, (l + 1) EPL); the softmax sums per lane in slot order
+    and then by butterfly; each pick's d_raw is added by the lane that
+    holds its expert; the dot is an FMA chain per lane and a butterfly."""
+    from repro_torch.fp32 import fma32
+    T, E = logits.shape
+    epl = _epl(E)
+    x = torch.full((T, 32 * epl), -torch.inf)
+    x[:, :E] = logits.float()
+    x = x.view(T, 32, epl)
+    v = torch.exp(x - x.amax((1, 2), keepdim=True))
+    s = torch.zeros(T, 32)
+    for i in range(epl):
+        s = s + v[..., i]
+    p = v / _butterfly(s)[..., None]
+    top_e = mg_ref.moe_gate_plain(logits, k, None, norm)[1].long()
+    lanes = lambda a: torch.cat([a, torch.zeros(T, 32 - k)], 1)  # noqa
+    raw = lanes(p.reshape(T, -1).gather(1, top_e))
+    g = lanes(g_top_p.float())
+    d_raw = g
+    if norm:
+        sm, gs = _butterfly(raw), _butterfly(g * raw)
+        sc = sm.clamp(min=1e-9)
+        d_raw = torch.where(sm >= 1e-9, g / sc - gs / (sc * sc), g / sc)
+    inv_t = torch.tensor(1.0 / T, dtype=torch.float32)
+    d = torch.zeros(T, 32 * epl)
+    d[:, :E] = g_pm.float()[None] * inv_t
+    rows = torch.arange(T)[:, None]
+    d[rows, top_e] = d[rows, top_e] + d_raw[:, :k]  # distinct picks
+    d = d.view(T, 32, epl)
+    dot = torch.zeros(T, 32)
+    for i in range(epl):
+        dot = fma32(p[..., i], d[..., i], dot)
+    out = p * (d - _butterfly(dot)[..., None])
+    return out.reshape(T, -1)[:, :E]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("T,E,k", [(64, 128, 8), (50, 77, 5)])
+def test_gate_backward_lane_model_equals_autograd(T, E, k, norm, ties):
+    logits = _rand(12, (T, E), scale=1.5)
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    gtp, gpm = _rand(13, (T, k)), _rand(14, (E,))
+    want = mg_ref.moe_gate_grads_plain(logits, k, None, norm, gtp, gpm)
+    got = _gate_backward_lanes(logits, k, norm, gtp, gpm)
+    assert got.dtype == torch.float32
+    assert _err(got, want) <= GATE_TOL
+
+
+def _fused_mean(probs, blocks):
+    """The forward's probability mean in the kernel's order
+    (csrc/moe_gate.cu): warp w of block b sums rows b WARPS + w + i
+    blocks WARPS in row order in float32; the block adds its warps in
+    warp order. A lone block divides that by T; else each block's sum t
+    becomes the integer round(t 2^S), S = 62 - bits(T), the integers add
+    exactly, and total / 2^S / T is taken in float64 and rounded once to
+    float32. Adding +0.0 is exact, so missing rows are zeros."""
+    T, E = probs.shape
+    W = mg_ops.WARPS
+    stride = blocks * W
+    n = max(1, -(-T // stride))
+    rows = torch.zeros(n * stride, E)
+    rows[:T] = probs
+    acc = torch.zeros(blocks, W, E)
+    for i in range(n):
+        acc = acc + rows[i * stride:(i + 1) * stride].view(blocks, W, E)
+    part = torch.zeros(blocks, E)
+    for w in range(W):
+        part = part + acc[:, w]
+    if blocks == 1:
+        return part[0] / torch.tensor(float(T), dtype=torch.float32)
+    scale = 2.0 ** (62 - T.bit_length())
+    total = torch.round(part.double() * scale).long().sum(0)
+    assert int(total.max()) < 2 ** 62
+    return (total.double() / scale / T).float()
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+@pytest.mark.parametrize("T", [1, 333, 8192])
+def test_gate_fused_mean_order(T, sms):
+    """The fused mean's order on the grids the wrapper plans (one block
+    at T = 1 and at sms = 1 ... 132), at two expert counts."""
+    blocks = mg_ops.grid_plan(T, sms)
+    for E in (128, 77):
+        logits = _rand(T + E + sms, (T, E), scale=0.7)
+        probs = torch.softmax(logits, -1)
+        got = _fused_mean(probs, blocks)
+        assert got.dtype == torch.float32
+        assert float((got.double() - probs.double().mean(0)).abs().max()) \
+            <= GATE_TOL
+        assert torch.equal(got, _fused_mean(probs, blocks))
+
+
 def test_gate_cpu_wrapper_prob_mean_and_grads():
     logits = _rand(8, (40, 8), scale=1.2).requires_grad_()
     bias = _rand(9, (8,), scale=0.1)
@@ -395,3 +507,57 @@ def test_gate_serve_call_is_unchanged(cuda):
     out = mg_ops.moe_gate(logits, 8, torch.zeros(128, device=cuda))
     assert len(out) == 3 and build.launches()["moe_gate"] == 1
     assert build.launches()["moe_gate_bwd"] == 0
+
+
+def _cuda_kernel_names(fn, calls):
+    """Names of the CUDA kernels that `calls` calls of fn() ran (traced
+    again, up to three times, if the trace lost records)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) == calls:
+            break
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8192, 16])
+def test_gate_prob_mean_is_one_kernel(cuda, T):
+    """The forward with the mean is one device kernel a call, at
+    prefill's grid and at a one-block grid."""
+    logits = _rand(T, (T, 128), device=cuda, scale=0.7)
+    names = _cuda_kernel_names(
+        lambda: mg_ops.moe_gate(logits, 8, None, True, prob_mean=True), 5)
+    assert len(names) == 5, names
+    assert all("moe_gate_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_gate_prob_mean_calls_share_the_scratch(cuda):
+    """Calls at other T and E in a row share one scratch (accumulators
+    and ticket), which each leaves zero; T = 0 gives the plain version's
+    NaN mean, and a repeated call gives the first call's bits."""
+    seen = {}
+    for T, E in [(8192, 128), (1, 128), (0, 128), (8192, 128), (8192, 77),
+                 (333, 77), (0, 77), (8192, 128), (1, 77)]:
+        logits = _rand(T + E, (T, E), device=cuda, scale=0.7)
+        top_p, top_e, counts, pm = mg_ops.moe_gate(logits, 5, None, True,
+                                                   prob_mean=True)
+        want = mg_ref.moe_gate_plain(logits, 5, None, True, prob_mean=True)
+        torch.cuda.synchronize()
+        assert not mg_ops._scratch(logits.device).any()
+        assert torch.equal(top_e, want[1]) and torch.equal(counts, want[2])
+        if T == 0:
+            assert torch.isnan(pm).all() and torch.isnan(want[3]).all()
+            continue
+        assert float((pm - want[3]).abs().max()) <= GATE_TOL
+        if (T, E) in seen:
+            assert torch.equal(pm, seen[(T, E)])
+        seen[(T, E)] = pm

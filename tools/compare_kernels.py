@@ -1,6 +1,7 @@
 """Time the kernels of several checkouts of this repo in turns, on one
-GPU: the two proximity kernels, the MoE gate, the cell sums and the
-capacity assignment.
+GPU: the two proximity kernels, the MoE gate (the serve call, the
+training call with the probability mean and the backward), the cell
+sums and the capacity assignment.
 
     python3 tools/compare_kernels.py DIR [DIR ...] [--only FAMILY ...]
 
@@ -10,14 +11,18 @@ commit unpacked under a git-ignored directory
 one process that imports DIR's `repro_torch`, builds its kernels into
 DIR's own build directory, and calls its wrappers
 (`ops.proximity_lp_counts_grid`, `ops.proximity_lp_counts`,
-`moe_gate.ops.moe_gate`, `cell_sums.ops.cell_sums`,
+`moe_gate.ops.moe_gate`, `moe_gate.ops.moe_gate_bwd`,
+`cell_sums.ops.cell_sums`,
 `capacity_assign.ops.capacity_assign`: every build keeps their
 signatures, whatever its C interface) at the shapes `chip_smoke.py`
 checks first (every shape of the last two), each result held to DIR's
 plain version (proximity counts, cell-sum bits and assignment maps
-exactly; the gate's ids and counts exactly, its probabilities within
-`chip_smoke.GATE_TOL`). The turns run in the order given and then
-reversed (A B, B A). Each prints one JSON line per shape: the call
+exactly; the gate's ids and counts exactly, its probabilities, mean
+and float32 d logits within `chip_smoke.GATE_TOL`, bfloat16 d logits
+within `chip_smoke.ATTN_TOL`; the mean's sha256 is printed, so two
+trees that sum in one order show equal bits). The turns run in the
+order given and then reversed (A B, B A). Each prints one JSON line per
+shape: the call
 (CUDA events over batches of 10, median of 20, as `chip_smoke.py`'s
 `time_ms`), the kernel on the device, and everything the call issues
 on the device (`torch.profiler`). The card's nvidia-smi line comes
@@ -43,6 +48,9 @@ PROXIMITY = (("grid", 10_000, 10_000.0, 250.0, 1, "engine"),
 #: with chip_smoke.py's logits and zero bias
 GATE = ((8192, 128, 8, "float32"), (8192, 128, 8, "bfloat16"),
         (16, 128, 8, "float32"))
+#: (T, E, k, dtype) of the training calls: the forward with the
+#: probability mean and the backward, at the cut-depth MoE's shape
+GATE_TRAIN = ((8192, 128, 8, "float32"), (8192, 128, 8, "bfloat16"))
 
 
 def proximity(tree: Path, cs, dev):
@@ -71,6 +79,8 @@ def proximity(tree: Path, cs, dev):
 
 
 def gate(tree: Path, cs, dev):
+    import hashlib
+
     import torch
     from repro_torch.kernels.moe_gate import ops, ref
     for T, E, k, dtype in GATE:
@@ -87,6 +97,40 @@ def gate(tree: Path, cs, dev):
                 dtype=dtype, max_abs_err=err, ms=cs.time_ms(call),
                 kernel_device_ms=cs.device_ms(call, "moe_gate_kernel"),
                 **cs.call_profile(call))
+    # the training calls, with chip_smoke.py's check_moe_gate_bwd inputs:
+    # the forward with the mean, then the backward
+    for T, E, k, dtype in GATE_TRAIN:
+        dt = getattr(torch, dtype)
+        logits = cs._randn((T, E), T + E + 7, dev, dt, 0.7)
+        b = cs._randn((E,), E + 3, dev, scale=0.05)
+        gtp, gpm = cs._randn((T, k), 21, dev), cs._randn((E,), 22, dev)
+        fwd = lambda: ops.moe_gate(logits, k, b, True, prob_mean=True)  # noqa
+        _, top_e, counts, pm = fwd()
+        want = ref.moe_gate_plain(logits, k, b, True, prob_mean=True)
+        pm_err = float((pm - want[3]).abs().max() / want[3].abs().max())
+        if not (torch.equal(top_e, want[1]) and torch.equal(counts, want[2])
+                and pm_err <= cs.GATE_TOL):
+            raise AssertionError(f"{tree}: moe_gate with the mean at T={T}, "
+                                 f"{dtype} differs from its plain version")
+        bwd = lambda: ops.moe_gate_bwd(logits, top_e, gtp, gpm, True)  # noqa
+        dl = bwd().float()
+        wg = ref.moe_gate_grads_plain(logits, k, b, True, gtp, gpm)
+        err = float((dl - wg).abs().max() / wg.abs().max())
+        tol = cs.GATE_TOL if dt == torch.float32 else cs.ATTN_TOL[dt]
+        if err > tol:
+            raise AssertionError(f"{tree}: moe_gate_bwd at T={T}, {dtype}: "
+                                 f"d logits err {err}")
+        # the mean's bits, to set the trees' orders side by side
+        digest = hashlib.sha256(pm.cpu().numpy().tobytes()).hexdigest()[:16]
+        cs.emit(tree=str(tree), kernel="moe_gate_prob_mean", T=T, E=E, k=k,
+                dtype=dtype, prob_mean_err=pm_err, prob_mean_sha256=digest,
+                ms=cs.time_ms(fwd),
+                kernel_device_ms=cs.device_ms(fwd),  # every kernel
+                **cs.call_profile(fwd))
+        cs.emit(tree=str(tree), kernel="moe_gate_bwd", T=T, E=E, k=k,
+                dtype=dtype, max_abs_err=err, ms=cs.time_ms(bwd),
+                kernel_device_ms=cs.device_ms(bwd, "moe_gate_bwd_kernel"),
+                **cs.call_profile(bwd))
 
 
 #: chip_smoke.py's cell-sum shapes: (n, area, seed, mobility, replicas)

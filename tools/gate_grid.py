@@ -9,7 +9,10 @@ script times the kernel on the device (`torch.profiler`, as
 (8,192 x 128, k 8, float32 and bfloat16) and at 65,536 rows with
 BLOCKS_PER_SM of 1 to 4, and at decode's 16 rows with the grid forced to
 one block (the plan) or two, each choice held to the plain version and
-the choices run in order and then reversed. One JSON line a run, after
+the choices run in order and then reversed. The training calls (the
+forward with the probability mean, and the backward, which takes the
+same `grid_plan`) at 8,192 x 128, k 8, in both dtypes, with
+BLOCKS_PER_SM of 1 to 4, in the same turns. One JSON line a run, after
 the card's nvidia-smi line.
 """
 from __future__ import annotations
@@ -29,7 +32,7 @@ def main():
         sys.exit("gate_grid.py needs a CUDA GPU; none is visible")
     dev = torch.device("cuda")
     cs.card()
-    plan = ops.grid_plan
+    plan, per_sm = ops.grid_plan, ops.BLOCKS_PER_SM
     runs = [(T, dt, "blocks_per_sm", n) for T, dt in (
         (8192, torch.float32), (8192, torch.bfloat16),
         (65536, torch.float32)) for n in (1, 2, 3, 4)]
@@ -51,6 +54,29 @@ def main():
                 blocks=ops.grid_plan(T, ops._sm_count(dev)),
                 kernel_device_ms=cs.device_ms(call, "moe_gate_kernel"))
     ops.grid_plan = plan
+    train = [(dt, n) for dt in (torch.float32, torch.bfloat16)
+             for n in (1, 2, 3, 4)]
+    for dt, n in train + train[::-1]:
+        ops.BLOCKS_PER_SM = n
+        T, E, k = 8192, 128, 8
+        logits = cs._randn((T, E), T + E + 7, dev, dt, 0.7)
+        gtp, gpm = cs._randn((T, k), 21, dev), cs._randn((E,), 22, dev)
+        fwd = lambda: ops.moe_gate(logits, k, None, True,  # noqa: E731
+                                   prob_mean=True)
+        top_e = fwd()[1]
+        bwd = lambda: ops.moe_gate_bwd(logits, top_e, gtp, gpm,  # noqa
+                                       True)
+        want = ref.moe_gate_grads_plain(logits, k, None, True, gtp, gpm)
+        err = float((bwd().float() - want).abs().max() / want.abs().max())
+        if err > (cs.GATE_TOL if dt == torch.float32 else 2e-2):
+            raise AssertionError(f"moe_gate_bwd at blocks_per_sm={n} "
+                                 f"differs from its plain version: {err}")
+        cs.emit(T=T, E=E, k=k, dtype=str(dt).split(".")[-1],
+                blocks_per_sm=n, blocks=ops.grid_plan(T, ops._sm_count(dev)),
+                prob_mean_device_ms=cs.device_ms(fwd),
+                bwd_device_ms=cs.device_ms(bwd, "moe_gate_bwd_kernel"),
+                bwd_err=err)
+    ops.BLOCKS_PER_SM = per_sm
 
 
 if __name__ == "__main__":
