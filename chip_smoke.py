@@ -129,6 +129,16 @@ and prints no result):
               forced on the kernels' tokens and hidden states, through
               the kernels and through their plain versions (rows that
               route alike agree within the bf16 tolerance)
+  8b. mla_serve deepseek-v3-671b at full width cut to 4 layers (3 dense,
+              1 MoE of 256 routed experts and a shared one; MTP head
+              drawn, not run: 15.8 B parameters allocated, printed
+              beside `param_count()`), run right after phase serve with
+              its traffic (16 x 512 prompts, 64 greedy steps), GAIA on
+              and off (identical tokens); MLA prefill through the
+              attention kernel at Dk 192 / Dv 128 (4 launches), absorbed
+              MLA decode in torch ops (0 flash_decode launches), the
+              gate once a step (65 launches); every layer, dense stack
+              first, against the plain versions
   9. serve_cpu the smoke config on the card against the port on the CPU,
               teacher-forced (logits within the bf16 tolerance)
  10. train    the training path: the flash-attention backward (with the
@@ -932,30 +942,36 @@ def check_moe_gate(T, E, k, dtype, dev, bias=False, ties=False):
             **bound(nbytes, ops_n), "library_ms": None}
 
 
-def check_flash_attention(B, H, Hkv, S, D, dtype, dev):
+def check_flash_attention(B, H, Hkv, S, D, dtype, dev, Dv=None):
+    """The attention forward at q, k (., D) and v (., Dv; D when None)
+    against its plain version; PyTorch's fused attention as the library
+    call."""
     from repro_torch.kernels.flash_attention import ops, ref
     F = torch.nn.functional
+    Dv = D if Dv is None else Dv
     q = _randn((B, H, S, D), 1, dev, dtype)
     k = _randn((B, Hkv, S, D), 2, dev, dtype)
-    v = _randn((B, Hkv, S, D), 3, dev, dtype)
+    v = _randn((B, Hkv, S, Dv), 3, dev, dtype)
     got = ops.flash_attention(q, k, v, True)
     want = ref.flash_attention_plain(q, k, v, True)
     torch.cuda.synchronize()
     over, err = _attn_err(got, want, dtype)
     if over > 0:
-        raise AssertionError(f"flash_attention at {(B, H, Hkv, S, D)} "
+        raise AssertionError(f"flash_attention at {(B, H, Hkv, S, D, Dv)} "
                              f"{dtype}: max_abs_err {err}")
+    del got, want
     esize = q.element_size()
-    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * esize
+    nbytes = (B * H * S * (D + Dv) + B * Hkv * S * (D + Dv)) * esize
     pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
-    ops_n = 4 * D * pairs  # QK^T and PV, a multiply and an add each
+    # QK^T over D and PV over Dv, a multiply and an add each
+    ops_n = 2 * (D + Dv) * pairs
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
     call = lambda: ops.flash_attention(q, k, v, True)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
-    return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": True,
-            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "ms": time_ms(call),
+        q, k, v, is_causal=True, enable_gqa=Hkv < H)
+    return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
+            "causal": True, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "flash_attention"),
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(
                 q, k, v, True), batch=1),
@@ -1001,17 +1017,23 @@ def check_lm_kernels(dev):
     """The three kernels of the serving path at the shapes qwen3-moe-
     30b-a3b's prefill (16 x 512 tokens) and decode (16 tokens, cache
     576) give them, and more: the gate in bfloat16, with a nonzero bias
-    and on tie-heavy logits, the attention kernels in float32."""
+    and on tie-heavy logits, the attention kernels in float32; and the
+    two kernels of deepseek-v3-671b's prefill (phase mla_serve): the
+    attention at Dk 192, Dv 128 (16 x 512 tokens, 128 heads) and the
+    gate over 256 experts with its router bias."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "moe_gate": [check_moe_gate(8192, 128, 8, f32, dev),
                      check_moe_gate(16, 128, 8, f32, dev),
                      check_moe_gate(8192, 128, 8, bf, dev),
                      check_moe_gate(8192, 128, 8, f32, dev, bias=True),
-                     check_moe_gate(8192, 128, 8, f32, dev, ties=True)],
+                     check_moe_gate(8192, 128, 8, f32, dev, ties=True),
+                     check_moe_gate(8192, 256, 8, f32, dev, bias=True),
+                     check_moe_gate(16, 256, 8, f32, dev, bias=True)],
         "flash_attention": [
             check_flash_attention(16, 32, 4, 512, 64, bf, dev),
-            check_flash_attention(2, 8, 2, 384, 128, f32, dev)],
+            check_flash_attention(2, 8, 2, 384, 128, f32, dev),
+            check_flash_attention(16, 128, 128, 512, 192, bf, dev, Dv=128)],
         "flash_decode": [
             check_flash_decode(16, 32, 4, 576, 64, 543, bf, dev),
             check_flash_decode(4, 8, 2, 1000, 128, 777, f32, dev)],
@@ -1107,7 +1129,7 @@ def layerwise_vs_plain(cfg, seed, prompts, tokens, dev):
                             cfg)
     extras = lm.init_extras(cfg, dev)
     prompts, tokens = prompts.to(dev), tokens.to(dev)
-    P, gen, L = prompts.shape[1], tokens.shape[1] - 1, cfg.n_layers
+    P, gen = prompts.shape[1], tokens.shape[1] - 1
     agree = {"prefill": _Agreement(), "decode": _Agreement()}
 
     def both(kind, fn):
@@ -1130,35 +1152,40 @@ def layerwise_vs_plain(cfg, seed, prompts, tokens, dev):
         return (lk - lp).abs().amax(-1).float().flatten() / lk.abs().max()
 
     x = embed_fwd(params["embed"], prompts)
-    kvs, logit_errs = [], []
-    def kwargs(i):
-        if cfg.moe is None:
+    logit_errs = []
+
+    def kwargs(moe, i):
+        if not moe:
             return dict(cfg=cfg)
         return dict(cfg=cfg, router_bias=extras["router_bias"][i],
                     placement=extras["placement"][i])
 
-    for i in range(L):
-        lay = lm.layer(params["layers"], i)
-        kw = kwargs(i)
-        (x, kv, _), (xp, _, _) = both(
-            "prefill", lambda plain: blocks.tf_block_fwd(
-                lay, x, return_kv=True, **kw))
-        kvs.append(kv)
+    # the stacks in order: `dense_layers` (first_k_dense), then `layers`
+    cache = {}
+    for name, n, moe in lm.stacks(cfg):
+        kvs = []
+        for i in range(n):
+            lay = lm.layer(params[lm.STACK_PARAMS[name]], i)
+            kw = kwargs(moe, i)
+            (x, kv, _), (xp, _, _) = both(
+                "prefill", lambda plain: blocks.tf_block_fwd(
+                    lay, x, return_kv=True, **kw))
+            kvs.append(kv)
+        cache[name] = lm.tree_map(lambda *t: torch.stack(t), *kvs)
+        del kvs
     logit_errs.append(logit_err(x[:, -1:], xp[:, -1:]))
-    cache = lm._pad_cache_to({"main": (torch.stack([k for k, _ in kvs]),
-                                       torch.stack([v for _, v in kvs]))},
-                             cfg, P + gen)
-    del kvs
+    cache = lm._pad_cache_to(cache, cfg, P + gen)
     for step in range(gen):
         x = embed_fwd(params["embed"], tokens[:, step, None])
-        for i in range(L):
-            lay = lm.layer(params["layers"], i)
-            kw = kwargs(i)
-            c = lm.layer(cache["main"], i)
-            twin = {k: t.clone() for k, t in c.items()}
-            (x, _), (xp, _) = both(
-                "decode", lambda plain: blocks.tf_block_decode(
-                    lay, x, twin if plain else c, P + step, **kw))
+        for name, n, moe in lm.stacks(cfg):
+            for i in range(n):
+                lay = lm.layer(params[lm.STACK_PARAMS[name]], i)
+                kw = kwargs(moe, i)
+                c = lm.layer(cache[name], i)
+                twin = lm.tree_map(lambda t: t.clone(), c)
+                (x, _), (xp, _) = both(
+                    "decode", lambda plain: blocks.tf_block_decode(
+                        lay, x, twin if plain else c, P + step, **kw))
         logit_errs.append(logit_err(x, xp))
     res = {k: a.summary() for k, a in agree.items()}
     le = torch.cat([e.flatten() for e in logit_errs]).cpu()
@@ -1225,6 +1252,86 @@ def serve_phase(gen: int, dev):
         raise AssertionError("serve: GAIA migrated no expert")
     if not same:
         raise AssertionError("serve: GAIA on and off gave other tokens")
+    return res
+
+
+#: phase mla_serve: deepseek-v3-671b at full width, its 61 layers cut to
+#: its 3 dense layers and 1 MoE layer (15.8 B parameters; the full model
+#: does not fit one card), serve's traffic (16 x 512 prompts)
+MLA_SERVE = dict(arch="deepseek-v3-671b", layers=4, batch=16,
+                 prompt_len=512, seed=0)
+
+
+def mla_serve_phase(gen: int, smi: str, dev):
+    """deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE of 256 experts
+    with a shared expert) serving 16 prompts of 512 tokens and `gen`
+    greedy steps through `launch/serve.py` with GAIA on and off; MLA
+    prefill through the attention kernel at Dk 192 / Dv 128 (one launch
+    a layer), absorbed MLA decode in torch ops (no flash_decode launch),
+    the gate once a step in the one MoE layer; then every layer, dense
+    stack first, against the plain versions (teacher-forced)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.serve import example_gaia_config, serve
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()  # phase serve's 60 GB go back first
+    cfg = dataclasses.replace(get_arch(MLA_SERVE["arch"]),
+                              n_layers=MLA_SERVE["layers"])
+    gcfg = example_gaia_config(cfg)
+    B, P, seed = (MLA_SERVE[k] for k in ("batch", "prompt_len", "seed"))
+    torch.cuda.reset_peak_memory_stats()
+    # the weights serve draws from `seed`, drawn here to count them (GAIA
+    # on permutes them in place; the off run draws its own again)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+    allocated = sum(t.numel() for t in tree.leaves(params))
+    kbuild.reset_launches()
+    run = serve(cfg, gcfg, B, P, gen, seed, dev, params=params,
+                keep_logits=True)
+    launches = kbuild.launches()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    off = serve(cfg, None, B, P, gen, seed, dev, keep_logits=True)
+    same = torch.equal(off["tokens"], run["tokens"])
+    off_gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(off["logits"], run["logits"]))
+    finite = all(bool(torch.isfinite(lg).all()) for lg in run["logits"])
+    del off, run["logits"]
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(seed + 1))
+    vs_plain = layerwise_vs_plain(cfg, seed, prompts, run["tokens"], dev)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    want = {"flash_attention": cfg.n_layers, "flash_decode": 0,
+            "moe_gate": n_moe * (gen + 1)}
+    res = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           "dense_layers": cfg.moe.first_k_dense, "moe_layers": n_moe,
+           "params_allocated": allocated,
+           "param_count": cfg.param_count(),
+           "batch": B, "prompt_len": P, "gen": gen, "cache_len": P + gen,
+           "gaia": dataclasses.asdict(gcfg),
+           "launches": {k: launches[k] for k in want},
+           "migrations": run["migrations"],
+           "migration_steps": run["migration_steps"],
+           "max_memory_allocated": peak, "prefill_s": run["prefill_s"],
+           "prefill_tokens_per_s": B * P / run["prefill_s"],
+           "decode_ms_per_step": 1e3 * run["decode_s"] / gen,
+           "decode_tokens_per_s": B * gen / run["decode_s"],
+           "logits_finite": finite,
+           "gaia_off": {"same_tokens": same, "max_logit_gap": off_gap},
+           "vs_plain_layerwise": vs_plain}
+    emit(phase="mla_serve", **res)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"mla_serve launched {launches}, want {want}")
+    if run["migrations"] <= 0:
+        raise AssertionError("mla_serve: GAIA migrated no expert")
+    if not same:
+        raise AssertionError("mla_serve: GAIA on and off gave other tokens")
+    if not finite or tuple(run["tokens"].shape) != (B, gen + 1):
+        raise AssertionError("mla_serve: non-finite logits or tokens of "
+                             f"shape {tuple(run['tokens'].shape)}")
     return res
 
 
@@ -3294,6 +3401,7 @@ def main():
     emit(phase="kernels_checked", shapes=shapes)
     seconds["kernels"] = time.perf_counter() - t_kernels
     served = timed("serve", serve_phase, a.gen, dev)
+    mla_served = timed("mla_serve", mla_serve_phase, a.gen, smi, dev)
     launches, solo = timed("main", main_path, a.steps, a.dense_steps, dev)
     # the engine's capacity-assign launches must all take the rounds
     with capacity_assign_rounds() as got:
@@ -3380,6 +3488,7 @@ def main():
             "service_launches": service_launches.get(stem, 0),
             "obs_launches": obs_launches.get(stem, 0),
             "sharded_launches": sharded_launches.get(stem, 0),
+            "mla_serve_launches": mla_served["launches"].get(stem, 0),
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
             **{f: main_shape[f] for f in (

@@ -49,6 +49,16 @@
 // so their K/V tiles stay hot in L2. The tensor maps are encoded on the
 // host per call (sm90.cuh).
 //
+// bfloat16 at Dk 192, Dv 128 (DeepSeek-V3's MLA prefill: 128 nope + 64
+// rope dims for q and k, 128 for v) runs the same kernel with the head
+// dims of q/k and of v as separate template parameters: a Q or K row is
+// three 64-column boxes, a V or output row two, so a ring stage holds
+// 3 + 2 boxes (40 KB), QK^T runs 12 k-steps of 16, and the accumulator
+// O is 64 x 128 as at D 128. MLA's group is 1, so a block takes one
+// query head. With two stages and one Q slot (the next item's Q waits
+// for this one's output to leave through it) a block needs 105 KB, so
+// two blocks, two consumer warpgroups, share an SM.
+//
 // What bounds it at the prefill shape: latency, not a unit's rate. Each
 // warpgroup runs QK^T, softmax and PV of a tile back to back; the two
 // blocks of an SM overlap four such chains, which the registers (96 a
@@ -443,30 +453,47 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int TILE_BYTES = 64 * 128;  // one (64 rows, 64 bf16) swizzled box
 
-template <int D, int NWG>
+// DK: the head dim of q and k; DV: of v and the output (MLA: 192, 128).
+// MLA's 40 KB stages would leave one block an SM (one consumer
+// warpgroup: its QK^T, softmax and PV run back to back with nothing to
+// overlap them); with two stages and one Q slot two blocks fit an SM.
+template <int DK, int DV, int NWG>
 struct Wg {
-  static constexpr int CB = D / 64;            // 64-column boxes a row
-  static constexpr int STAGES = D == 64 ? 4 : 3;
-  static constexpr int Q_BYTES = NWG * CB * TILE_BYTES;  // two Q slots
-  static constexpr int KV_BYTES = 2 * CB * TILE_BYTES;   // a stage: K, V
-  static constexpr int BAR_BYTES = 8 * (2 * STAGES + 4);
+  static constexpr int CBK = DK / 64;  // 64-column boxes of a Q or K row
+  static constexpr int CBV = DV / 64;  // of a V or output row
+  static constexpr int STAGES = DK == 64 ? 4 : DK == 128 ? 3 : 2;
+  static constexpr int QSLOTS = DK == 192 ? 1 : 2;
+  static constexpr int Q_BYTES = NWG * CBK * TILE_BYTES;  // a Q slot
+  static constexpr int KV_BYTES = (CBK + CBV) * TILE_BYTES;  // a stage: K, V
+  static constexpr int BAR_BYTES = 8 * (2 * STAGES + 2 * QSLOTS);
   // + 1024: the dynamic buffer is aligned up to the swizzle atom
   static constexpr int SMEM =
-      1024 + 2 * Q_BYTES + STAGES * KV_BYTES + BAR_BYTES;
+      1024 + QSLOTS * Q_BYTES + STAGES * KV_BYTES + BAR_BYTES;
   static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = DK == 128 ? 1 : 2;
+  // MLA's query heads each have their own K/V (320 KB a head at S 512):
+  // items walk a head's q tiles in a row, so its K/V is read from HBM
+  // once and from L2 by the rest of its q tiles (q-tile-major, the
+  // blocks in flight would cover one q tile of 264 heads, 86 MB of K/V,
+  // past the 50 MB L2, and read each head's K/V once a q tile)
+  static constexpr bool HEAD_MAJOR = DK == 192;
+  // the output tile leaves through its warpgroup's Q slot
+  static_assert(DV <= DK && DV % 64 == 0 && DK % 64 == 0, "head dims");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
 };
 
 // Persistent: one block per resident slot walks the n_qt * n_hg work
 // items in rounds of gridDim.x, item w being q tile n_qt - 1 - w / n_hg
 // (heaviest causal tile first) of head group w % n_hg (NWG query heads
-// of one KV head; neighbouring groups share KV heads). The producer runs
+// of one KV head; neighbouring groups share KV heads); with HEAD_MAJOR,
+// q tile n_qt - 1 - w % n_qt of head group w / n_qt. The producer runs
 // ahead across items: the next item's Q goes to the other of two Q
-// slots and its K/V into the same ring while the consumers finish the
-// current one, whose output leaves through its own Q slot by TMA store.
-template <int D, int NWG>
-__global__ void __launch_bounds__(Wg<D, NWG>::THREADS,
-                                  Wg<D, NWG>::MIN_BLOCKS)
+// slots (with one slot: once this item's output has left it) and its
+// K/V into the same ring while the consumers finish the current one,
+// whose output leaves through its own Q slot by TMA store.
+template <int DK, int DV, int NWG>
+__global__ void __launch_bounds__(Wg<DK, DV, NWG>::THREADS,
+                                  Wg<DK, DV, NWG>::MIN_BLOCKS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
@@ -474,17 +501,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              float* __restrict__ lse, int H, int Hkv, int S,
                              int Skv, int causal, float scale_log2, int n_qt,
                              int n_hg) {
-  using C = Wg<D, NWG>;
+  using C = Wg<DK, DV, NWG>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;  // two slots of Q_BYTES
-  const uint32_t ring = base + 2 * C::Q_BYTES;
+  constexpr int QS = C::QSLOTS;
+  const uint32_t q_s = base;  // QS slots of Q_BYTES
+  const uint32_t ring = base + QS * C::Q_BYTES;
   const uint32_t bars = ring + ST * C::KV_BYTES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (ST + s); };
   auto q_full = [&](int s) { return bars + 8 * (2 * ST + s); };
-  auto q_empty = [&](int s) { return bars + 8 * (2 * ST + 2 + s); };
+  auto q_empty = [&](int s) { return bars + 8 * (2 * ST + QS + s); };
   const int total = n_qt * n_hg;
   const int kv_tiles = (Skv + 63) / 64;
   // this block's r-th item: rounds of gridDim.x items, every other round
@@ -501,7 +529,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_init(full(s), 1);
       sm90::mbar_init(empty(s), NWG * 4);  // one arrival a consumer warp
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < QS; ++s) {
       sm90::mbar_init(q_full(s), 1);
       sm90::mbar_init(q_empty(s), NWG);  // one arrival a warpgroup
     }
@@ -517,29 +545,30 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       int it = 0, qi = 0;  // K/V tiles and items so far
       for (int r = 0; item(r) < total; ++r, ++qi) {
         const int w = item(r);
-        const int qt = n_qt - 1 - w / n_hg;
-        const int bh0 = (w % n_hg) * NWG;  // b * H + first query head
+        const int qt = n_qt - 1 - (C::HEAD_MAJOR ? w % n_qt : w / n_hg);
+        // b * H + first query head
+        const int bh0 = (C::HEAD_MAJOR ? w / n_qt : w % n_hg) * NWG;
         const int bkv = (bh0 / H) * Hkv + (bh0 % H) / G;
         const int n_kt = causal ? min(kv_tiles, qt + 1) : kv_tiles;
-        const int qs = qi & 1;
-        sm90::mbar_wait(q_empty(qs), ((qi >> 1) & 1) ^ 1);
+        const int qs = qi % QS;
+        sm90::mbar_wait(q_empty(qs), ((qi / QS) & 1) ^ 1);
         sm90::mbar_arrive_tx(q_full(qs), C::Q_BYTES);
         for (int h = 0; h < NWG; ++h)
-          for (int c = 0; c < C::CB; ++c)
+          for (int c = 0; c < C::CBK; ++c)
             sm90::tma_load_3d(q_s + qs * C::Q_BYTES +
-                                  (h * C::CB + c) * TILE_BYTES,
+                                  (h * C::CBK + c) * TILE_BYTES,
                               &tq, q_full(qs), c * 64, qt * 64, bh0 + h);
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % ST;
           sm90::mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
           sm90::mbar_arrive_tx(full(s), C::KV_BYTES);
           const uint32_t st = ring + s * C::KV_BYTES;
-          for (int c = 0; c < C::CB; ++c) {
+          for (int c = 0; c < C::CBK; ++c)
             sm90::tma_load_3d(st + c * TILE_BYTES, &tk, full(s), c * 64,
                               kt * 64, bkv);
-            sm90::tma_load_3d(st + (C::CB + c) * TILE_BYTES, &tv, full(s),
+          for (int c = 0; c < C::CBV; ++c)
+            sm90::tma_load_3d(st + (C::CBK + c) * TILE_BYTES, &tv, full(s),
                               c * 64, kt * 64, bkv);
-          }
         }
       }
     }
@@ -552,18 +581,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int it = 0, qi = 0;
   for (int r = 0; item(r) < total; ++r, ++qi) {
     const int w = item(r);
-    const int qt = n_qt - 1 - w / n_hg;
-    const int bh0 = (w % n_hg) * NWG;
+    const int qt = n_qt - 1 - (C::HEAD_MAJOR ? w % n_qt : w / n_hg);
+    const int bh0 = (C::HEAD_MAJOR ? w / n_qt : w % n_hg) * NWG;
     const int n_kt = causal ? min(kv_tiles, qt + 1) : kv_tiles;
     const int qpos0 = qt * 64 + (warp & 3) * 16 + g, qpos1 = qpos0 + 8;
-    const int qs = qi & 1;
-    const uint32_t qa = q_s + qs * C::Q_BYTES + wg * C::CB * TILE_BYTES;
+    const int qs = qi % QS;
+    const uint32_t qa = q_s + qs * C::Q_BYTES + wg * C::CBK * TILE_BYTES;
 
     // running max in raw score units (the scale is folded into exp2)
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     // S = Q K^T, 64 x 64: sc[4j + 2u + e] is (row g + 8u, key 8j + 2t + e)
     float sc[32];
     uint32_t pa[4][4];  // P as the A fragments of PV's four key chunks
@@ -571,21 +600,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // issue S = Q K^T for the K tile at `st` (not committed)
     auto issue_s = [&](uint32_t st) {
 #pragma unroll
-      for (int k = 0; k < D / 16; ++k) {
+      for (int k = 0; k < DK / 16; ++k) {
         const uint32_t off = (k / 4) * TILE_BYTES + (k % 4) * 32;
         sm90::wgmma_ss_m64n64k16(sc, sm90::desc_sw128(qa + off, 16, 1024),
                                  sm90::desc_sw128(st + off, 16, 1024), k > 0);
       }
     };
-    // issue O += P V for the V tile of the stage at `st`: (keys, D) is
+    // issue O += P V for the V tile of the stage at `st`: (keys, DV) is
     // the MN-major B operand; 16 keys a step are 2 KB of the swizzled
     // tile, the second 64 columns 8 KB on
     auto issue_pv = [&](uint32_t st) {
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) {
         const uint64_t dv = sm90::desc_sw128(
-            st + C::CB * TILE_BYTES + kc * 2048, TILE_BYTES, 1024);
-        if constexpr (D == 64)
+            st + C::CBK * TILE_BYTES + kc * 2048, TILE_BYTES, 1024);
+        if constexpr (DV == 64)
           sm90::wgmma_rs_m64n64k16_tb(o, pa[kc], dv);
         else
           sm90::wgmma_rs_m64n128k16_tb(o, pa[kc], dv);
@@ -646,7 +675,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // j / 2, rows g, g + 8 by keys 2t, 2t + 8
     auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= corr0;
         o[4 * j + 1] *= corr0;
         o[4 * j + 2] *= corr1;
@@ -661,7 +690,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto stage = [&](int kt) { return (it + kt) % ST; };
     auto parity = [&](int kt) { return ((it + kt) / ST) & 1; };
 
-    sm90::mbar_wait(q_full(qs), (qi >> 1) & 1);
+    sm90::mbar_wait(q_full(qs), (qi / QS) & 1);
     for (int kt = 0; kt < n_kt; ++kt) {
       const uint32_t st = ring + stage(kt) * C::KV_BYTES;
       sm90::mbar_wait(full(stage(kt)), parity(kt));
@@ -699,7 +728,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = (warp & 3) * 16 + g;  // rows r0, r0 + 8 of the tile
     unsigned char* qtile = smem_raw + (qa - sm90::smem_addr(smem_raw));
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       // 16-byte chunk j % 8 of a 128-byte row, XOR-swizzled by row % 8
       unsigned char* cb = qtile + (j / 8) * TILE_BYTES + 4 * t;
       const int ch0 = ((j % 8) ^ (r0 % 8)) * 16;
@@ -711,7 +740,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::fence_async_smem();
     sm90::named_barrier(1 + wg, 128);
     if ((threadIdx.x & 127) == 0) {
-      for (int c = 0; c < C::CB; ++c)
+      for (int c = 0; c < C::CBV; ++c)
         sm90::tma_store_3d(&to, qa + c * TILE_BYTES, c * 64, qt * 64,
                            bh0 + wg);
       sm90::tma_store_commit();
@@ -721,25 +750,25 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, int NWG>
+template <int DK, int DV, int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int H, int Hkv, int S, int Skv,
                  int causal, float scale, cudaStream_t s) {
-  using C = Wg<D, NWG>;
+  using C = Wg<DK, DV, NWG>;
   CUtensorMap mq, mk, mv, mo;
-  int e = sm90::make_map_bf16_3d(&mq, q, D, S, static_cast<uint64_t>(B) * H,
+  int e = sm90::make_map_bf16_3d(&mq, q, DK, S, static_cast<uint64_t>(B) * H,
                                  64);
   if (e == 0)
-    e = sm90::make_map_bf16_3d(&mo, out, D, S, static_cast<uint64_t>(B) * H,
-                               64);
+    e = sm90::make_map_bf16_3d(&mo, out, DV, S,
+                               static_cast<uint64_t>(B) * H, 64);
   if (e == 0)
-    e = sm90::make_map_bf16_3d(&mk, k, D, Skv,
+    e = sm90::make_map_bf16_3d(&mk, k, DK, Skv,
                                static_cast<uint64_t>(B) * Hkv, 64);
   if (e == 0)
-    e = sm90::make_map_bf16_3d(&mv, v, D, Skv,
+    e = sm90::make_map_bf16_3d(&mv, v, DV, Skv,
                                static_cast<uint64_t>(B) * Hkv, 64);
   if (e != 0) return e;
-  auto kern = flash_attention_wgmma_kernel<D, NWG>;
+  auto kern = flash_attention_wgmma_kernel<DK, DV, NWG>;
   // per device: the opt-in to the shared memory and the resident blocks
   static int slots[64] = {0};
   int dev = 0;
@@ -782,16 +811,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                          s);
   } else {
     if ((H / Hkv) % 2 == 0)
-      return launch_wgmma<D, 2>(q, k, v, out, lse, B, H, Hkv, S, Skv, causal,
-                                scale, s);
-    return launch_wgmma<D, 1>(q, k, v, out, lse, B, H, Hkv, S, Skv, causal,
-                              scale, s);
+      return launch_wgmma<D, D, 2>(q, k, v, out, lse, B, H, Hkv, S, Skv,
+                                   causal, scale, s);
+    return launch_wgmma<D, D, 1>(q, k, v, out, lse, B, H, Hkv, S, Skv,
+                                 causal, scale, s);
   }
 }
 
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int H, int Hkv, int S, int Skv, int D,
+           float* lse, int B, int H, int Hkv, int S, int Skv, int D, int Dv,
            int causal, float scale, int dtype, cudaStream_t s) {
+  // MLA (Dk 192, Dv 128), bfloat16 only: one query head a block (its
+  // group is 1), two stages of 3 + 2 boxes, one Q slot, 105 KB
+  if (D == 192 && Dv == 128 && dtype == 1)
+    return launch_wgmma<192, 128, 1>(q, k, v, out, lse, B, H, Hkv, S, Skv,
+                                     causal, scale, s);
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
 #define FA_CASE(DD)                                                       \
   case DD:                                                                \
     return dtype == 1 ? launch_bf16<DD>(q, k, v, out, lse, B, H, Hkv, S,  \
@@ -810,20 +845,23 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q, out: (B, H, S, D); k, v: (B, Hkv, Skv, D); all contiguous, one
-// dtype (0 = float32, 1 = bfloat16). D in {16, 32, 64, 128}; scores
-// are scaled by `scale` (the caller's float32 D^-0.5). lse: null, or a
-// float32 (B, H, S) that receives each row's log-sum-exp.
+// q: (B, H, S, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv); out:
+// (B, H, S, Dv); all contiguous, one dtype (0 = float32, 1 = bfloat16).
+// (D, Dv): (16, 16), (32, 32), (64, 64), (128, 128), and (192, 128) in
+// bfloat16; scores are scaled by `scale` (the caller's float32 D^-0.5).
+// lse: null, or a float32 (B, H, S) that receives each row's
+// log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int H, int Hkv, int S, int Skv,
-                                      int D, int causal, int dtype,
+                                      int D, int Dv, int causal, int dtype,
                                       float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, out, static_cast<float*>(lse), B, H, Hkv, S, Skv,
-                D, causal, scale, dtype, static_cast<cudaStream_t>(stream));
+                D, Dv, causal, scale, dtype,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

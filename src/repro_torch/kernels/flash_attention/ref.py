@@ -3,11 +3,13 @@
 The same function as the CUDA kernel (`csrc/flash_attention.cu`) and the
 Pallas TPU kernel it replaces
 (`repro.kernels.flash_attention.flash_attention`), in one block: scores
-in float32 scaled by D^-0.5, masked to -1e30 above the causal diagonal
-(top-left aligned when Skv != S), P = exp(s - rowmax) rounded to V's
-type before P.V, accumulated in float32 and divided by max(l, 1e-30).
-In float32 it is the exact softmax; in bfloat16 it differs from the
-kernel only by where P is rounded (one block here, 64-key tiles there).
+in float32 scaled by Dk^-0.5 (Dk the head dim of q and k; v may have
+its own, Dv, as MLA's 192 and 128), masked to -1e30 above the causal
+diagonal (top-left aligned when Skv != S), P = exp(s - rowmax) rounded
+to V's type before P.V, accumulated in float32 and divided by max(l,
+1e-30). In float32 it is the exact softmax; in bfloat16 it differs from
+the kernel only by where P is rounded (one block here, 64-key tiles
+there).
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ NEG_INF = -1e30
 
 
 def flash_attention_plain(q, k, v, causal: bool = True):
-    """q: (B, H, S, D); k, v: (B, Hkv, Skv, D) with Hkv dividing H (query
-    head h reads KV head h // (H // Hkv)). Returns (B, H, S, D) in q's
-    dtype."""
+    """q: (B, H, S, Dk); k: (B, Hkv, Skv, Dk); v: (B, Hkv, Skv, Dv) with
+    Hkv dividing H (query head h reads KV head h // (H // Hkv)). Returns
+    (B, H, S, Dv) in q's dtype."""
     B, H, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     kx = k.repeat_interleave(H // Hkv, dim=1).float()
@@ -49,7 +51,7 @@ def flash_attention_lse_plain(q, k, causal: bool = True):
 
 def flash_attention_grads_plain(q, k, v, dout, causal: bool = True):
     """(dq, dk, dv) by autograd through `flash_attention_plain`: the
-    plain twin of the backward kernel (dk, dv at (B, Hkv, Skv, D))."""
+    plain twin of the backward kernel (dk, dv at k's and v's shapes)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = flash_attention_plain(*leaves, causal)

@@ -7,7 +7,8 @@ observes the step's traffic (synthesised from the generated tokens as
 the example does: row b belongs to group b % G and sends 10 tokens to
 expert token % E) and, every `interval` steps, may migrate experts:
 the stored expert weights are permuted once, in place, and the routing
-table (`extras["placement"]`) follows.
+table (`extras["placement"]`) follows. Both belong to the MoE stack
+(`layers`): a config's leading `first_k_dense` layers have no experts.
 
     python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -80,7 +81,9 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
     lm_mod.check_ported(cfg)
     if cfg.moe is None and gaia_cfg is not None:
         raise ValueError(f"{cfg.name} has no MoE layers to place")
-    E, L = (cfg.moe.num_experts if cfg.moe else 0), cfg.n_layers
+    # migrations act on the MoE stack: its depth, not the model's
+    E = cfg.moe.num_experts if cfg.moe else 0
+    L = cfg.n_layers - lm_mod.first_k_dense(cfg)
     if gaia_cfg is not None and gaia_cfg.num_experts != E:
         raise ValueError(f"gaia_cfg.num_experts={gaia_cfg.num_experts} != "
                          f"the model's {E} experts")

@@ -3,7 +3,8 @@
 The reference's pytrees, taken to numpy with `np.asarray`, become the
 port's nested dicts of tensors with the same keys, shapes and dtypes:
 the parameters, `extras` (`router_bias`, `placement`) and KV caches of
-`repro.models.lm`, and the GAIA-MoE state of
+`repro.models.lm` (GQA's {"k", "v"} pairs, or MLA's latent arrays, a
+bare array under each stack's name), and the GAIA-MoE state of
 `repro.core.gaia_moe` (its `ptr` and `step` as Python ints).
 
 JAX hands bfloat16 out as `ml_dtypes.bfloat16` numpy arrays, which

@@ -28,7 +28,7 @@ def _init(gen: torch.Generator, shape, scale=None, dtype=PARAM_DT):
     scale = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)  # in place: one float32 temporary
 
 
 # ---------------------------------------------------------------------------

@@ -12,20 +12,24 @@ from __future__ import annotations
 import torch
 
 
-def leaves(tree) -> list:
-    """The leaves of `tree` in the reference's order."""
-    out = []
+def _walk(t, out: list) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk(t[k], out)
+    elif isinstance(t, (tuple, list)):
+        for x in t:
+            _walk(x, out)
+    elif t is not None:
+        out.append(t)
 
-    def walk(t):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        elif isinstance(t, (tuple, list)):
-            for x in t:
-                walk(x)
-        elif t is not None:
-            out.append(t)
-    walk(tree)
+
+def leaves(tree) -> list:
+    """The leaves of `tree` in the reference's order. (A module-level
+    walk: a nested function that calls itself is a reference cycle, which
+    would hold the list, and so every leaf, until the garbage collector
+    ran.)"""
+    out = []
+    _walk(tree, out)
     return out
 
 
@@ -38,21 +42,22 @@ def structure(tree):
     return {"none": None} if tree is None else None
 
 
+def _build(s, it):
+    if s is None:
+        return next(it)
+    (kind, body), = s.items()
+    if kind == "dict":
+        return {k: _build(v, it) for k, v in body.items()}
+    if kind == "none":
+        return None
+    seq = [_build(x, it) for x in body]
+    return tuple(seq) if kind == "tuple" else seq
+
+
 def unflatten(struct, flat) -> object:
     """The tree of `structure` with `flat`'s leaves, in order."""
     it = iter(flat)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        (kind, body), = s.items()
-        if kind == "dict":
-            return {k: build(v) for k, v in body.items()}
-        if kind == "none":
-            return None
-        seq = [build(x) for x in body]
-        return tuple(seq) if kind == "tuple" else seq
-    out = build(struct)
+    out = _build(struct, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out

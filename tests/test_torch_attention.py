@@ -139,6 +139,20 @@ def test_flash_attention_cpu_wrapper_and_no_fallback():
         fa_ops.flash_attention(*(t.to("meta") for t in (q, k, v)))
 
 
+def test_flash_attention_cpu_wrapper_at_dk_ne_dv():
+    """MLA's (192, 128) and the smoke's (24, 16) on the CPU: the plain
+    version, (B, H, S, Dv) out, and a gradient by its autograd."""
+    for dk, dv in ((192, 128), (24, 16)):
+        q, k = (_t(_rand(dk + i, (1, 2, 40, dk)), "float32") for i in (0, 1))
+        v = _t(_rand(dv, (1, 2, 40, dv)), "float32").requires_grad_()
+        out = fa_ops.flash_attention(q, k, v, True)
+        assert tuple(out.shape) == (1, 2, 40, dv)
+        assert torch.equal(out.detach(),
+                           fa_ref.flash_attention_plain(q, k, v.detach()))
+        out.sum().backward()
+        assert v.grad.shape == v.shape and v.grad.abs().sum() > 0
+
+
 # --- flash decode --------------------------------------------------------
 
 
@@ -327,6 +341,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.flash_attention(qb, qb[:, :2].contiguous(),
                                qb[:, :2].contiguous())
+    # MLA's pair takes v at 128 only, in bfloat16 only, and no gradient
+    q2 = torch.zeros((1, 2, 8, 192), dtype=torch.bfloat16, device=cuda)
+    v2 = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match=r"head dims \(Dk 192, Dv 64\)"):
+        fa_ops.flash_attention(q2, q2, v2[..., :64].contiguous())
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        fa_ops.flash_attention(q2.float(), q2.float(), v2.float())
+    with pytest.raises(ValueError, match=r"\(Dk 24, Dv 16\)"):
+        fa_ops.flash_attention(q2[..., :24].contiguous(),
+                               q2[..., :24].contiguous(),
+                               v2[..., :16].contiguous())
+    with pytest.raises(NotImplementedError, match="queue 2, item 1"):
+        fa_ops.flash_attention(q2.clone().requires_grad_(), q2, v2)
     qd = torch.zeros((1, 4, 64), device=cuda)
     kc = torch.zeros((1, 10, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="pos"):
@@ -359,6 +386,31 @@ def test_flash_attention_bf16_ragged_lengths_on_card(cuda, S, Skv, causal,
     want = fa_ref.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     _close(_f32(got.cpu()), _f32(want.cpu()), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S", [
+    (16, 128, 512),     # MLA prefill at full width (deepseek-v3-671b)
+    (2, 4, 200),        # ragged: a part tile at the end
+    (1, 3, 65)])
+def test_flash_attention_mla_pair_on_card(cuda, B, H, S):
+    """Dk 192, Dv 128, bf16, causal, K/V one head a query head (MLA's
+    group of 1), against the plain version; calls in a row bit-equal."""
+    r = np.random.default_rng(S)
+    q = _t(r.normal(size=(B, H, S, 192)).astype(np.float32),
+           "bfloat16").to(cuda)
+    k = _t(r.normal(size=(B, H, S, 192)).astype(np.float32),
+           "bfloat16").to(cuda)
+    v = _t(r.normal(size=(B, H, S, 128)).astype(np.float32),
+           "bfloat16").to(cuda)
+    build.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, True)
+    assert build.launches()["flash_attention"] == 1
+    assert tuple(got.shape) == (B, H, S, 128)
+    want = fa_ref.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    _close(_f32(got.cpu()), _f32(want.cpu()), "bfloat16")
+    assert torch.equal(fa_ops.flash_attention(q, k, v, True), got)
 
 
 @pytest.mark.cuda

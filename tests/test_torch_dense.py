@@ -2,7 +2,7 @@
 port, held against the reference on the CPU: their configs, one serve
 step and decode against prefill (the cases of tests/test_arch_smoke.py
 for the four dense smokes), and the package surfaces the reference
-exports (core, parallel).
+exports (core, parallel, checkpoint, optim, data, configs).
 
 Weights cross from JAX through `models.convert`; tolerances as in
 tests/test_torch_serve.py: bfloat16 logits per row within LOGIT_MAX of
@@ -37,8 +37,8 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
 DENSE = ("yi-9b", "tinyllama-1.1b", "yi-6b", "qwen2-7b")
-LATER = ("deepseek-v3-671b", "rwkv6-1.6b", "internvl2-2b",
-         "seamless-m4t-medium", "zamba2-1.2b")
+LATER = ("rwkv6-1.6b", "internvl2-2b", "seamless-m4t-medium",
+         "zamba2-1.2b")
 LOGIT_MAX = 3e-2
 PX = make_ctx(None)
 DECODE = ShapeConfig("smoke_dec", seq_len=64, global_batch=2, kind="decode")
@@ -77,7 +77,8 @@ def test_dense_configs_equal_the_reference(arch, get):
 
 
 def test_registry_lists_the_ported_and_the_later():
-    assert sorted(tcfg.ARCHS) == sorted(DENSE + ("qwen3-moe-30b-a3b",))
+    assert sorted(tcfg.ARCHS) == sorted(DENSE + ("qwen3-moe-30b-a3b",
+                                                 "deepseek-v3-671b"))
     assert sorted(tcfg.NOT_PORTED) == sorted(LATER)
     assert sorted(tcfg.ARCHS) + sorted(tcfg.NOT_PORTED) == sorted(
         tcfg.ARCHS) + sorted(set(rcfg.ARCHS) - set(tcfg.ARCHS))
@@ -186,6 +187,56 @@ def test_core_legacy_names_stay_importable_outside_all():
         warnings.simplefilter("error", DeprecationWarning)
         for name in repro_torch.core.__all__:
             getattr(repro_torch.core, name)
+
+
+#: the reference's package -> the names its __init__ exports
+EXPORTS = {
+    "checkpoint": ("CheckpointManager",),
+    "optim": ("AdamWConfig", "adamw_init", "adamw_apply"),
+    "data": ("DataConfig", "SyntheticLM", "make_pipeline"),
+    "configs": ("get_arch", "get_smoke", "get_shape", "ARCHS", "SHAPES"),
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(EXPORTS))
+def test_package_names_cover_the_reference(pkg):
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    exported = {n for n in dir(ref) if not n.startswith("_")
+                and not isinstance(getattr(ref, n), type(importlib))}
+    assert set(EXPORTS[pkg]) <= exported
+    for name in EXPORTS[pkg]:
+        assert getattr(port, name) is not None, name
+        want, got = getattr(ref, name), getattr(port, name)
+        if isinstance(want, type):  # the same fields, by name
+            assert isinstance(got, type), name
+            if hasattr(want, "__dataclass_fields__"):
+                assert list(want.__dataclass_fields__) == list(
+                    got.__dataclass_fields__), name
+
+
+def test_package_surfaces_work_from_the_package():
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_shape
+    from repro_torch.data import DataConfig, SyntheticLM, make_pipeline
+    from repro_torch.optim import AdamWConfig, adamw_apply, adamw_init
+    from repro_torch.checkpoint import manager
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    assert CheckpointManager is manager.CheckpointManager
+    assert (DataConfig, SyntheticLM, make_pipeline) == (
+        pipeline.DataConfig, pipeline.SyntheticLM, pipeline.make_pipeline)
+    assert (AdamWConfig, adamw_init, adamw_apply) == (
+        adamw.AdamWConfig, adamw.adamw_init, adamw.adamw_apply)
+    assert dataclasses.asdict(get_shape("train_4k")) == dataclasses.asdict(
+        rcfg.get_shape("train_4k"))
+    with pytest.raises(KeyError, match="unknown shape"):
+        get_shape("train_8k")
+    it = make_pipeline(DataConfig(vocab_size=50, seq_len=9,
+                                  global_batch=2, seed=1))
+    assert next(it)["tokens"].shape == (2, 9)
+    it.close()
 
 
 def test_parallel_names_cover_the_reference():

@@ -1,7 +1,7 @@
 """Time the kernels of several checkouts of this repo in turns, on one
 GPU: the two proximity kernels, the MoE gate (the serve call, the
 training call with the probability mean and the backward), the cell
-sums and the capacity assignment.
+sums, the capacity assignment and the attention forward.
 
     python3 tools/compare_kernels.py DIR [DIR ...] [--only FAMILY ...]
 
@@ -13,13 +13,14 @@ DIR's own build directory, and calls its wrappers
 (`ops.proximity_lp_counts_grid`, `ops.proximity_lp_counts`,
 `moe_gate.ops.moe_gate`, `moe_gate.ops.moe_gate_bwd`,
 `cell_sums.ops.cell_sums`,
-`capacity_assign.ops.capacity_assign`: every build keeps their
+`capacity_assign.ops.capacity_assign`,
+`flash_attention.ops.flash_attention`: every build keeps their
 signatures, whatever its C interface) at the shapes `chip_smoke.py`
 checks first (every shape of the last two), each result held to DIR's
 plain version (proximity counts, cell-sum bits and assignment maps
 exactly; the gate's ids and counts exactly, its probabilities, mean
 and float32 d logits within `chip_smoke.GATE_TOL`, bfloat16 d logits
-within `chip_smoke.ATTN_TOL`; the mean's sha256 is printed, so two
+and the attention's output within `chip_smoke.ATTN_TOL`; the mean's sha256 is printed, so two
 trees that sum in one order show equal bits). The turns run in the
 order given and then reversed (A B, B A). Each prints one JSON line per
 shape: the call
@@ -174,8 +175,42 @@ def capacity_assign(tree: Path, cs, dev):
                 **cs.call_profile(call))
 
 
+#: (B, H, Hkv, S, D, Dv) of the attention forward in bf16, causal: the
+#: prefill of qwen3-moe-30b-a3b, of qwen2-7b (a group of 7, S 4,096) and
+#: of deepseek-v3-671b's MLA (Dk 192, Dv 128); then MLA's heads and
+#: lengths at D 64 and 128 (no group: every head its own K/V)
+ATTENTION = ((16, 32, 4, 512, 64, 64), (1, 28, 4, 4096, 128, 128),
+             (16, 128, 128, 512, 192, 128), (16, 128, 128, 512, 64, 64),
+             (16, 128, 128, 512, 128, 128))
+
+
+def attention(tree: Path, cs, dev):
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    bf = torch.bfloat16
+    for B, H, Hkv, S, D, Dv in ATTENTION:
+        q = cs._randn((B, H, S, D), 1, dev, bf)
+        k = cs._randn((B, Hkv, S, D), 2, dev, bf)
+        v = cs._randn((B, Hkv, S, Dv), 3, dev, bf)
+        call = lambda: ops.flash_attention(q, k, v, True)  # noqa: E731
+        try:
+            got = call()
+        except ValueError as e:  # a tree that does not take the shape
+            cs.emit(tree=str(tree), kernel="flash_attention", B=B, H=H,
+                    Hkv=Hkv, S=S, D=D, Dv=Dv, refused=str(e)[:120])
+            continue
+        over, err = cs._attn_err(got, ref.flash_attention_plain(
+            q, k, v, True), bf)
+        if over > 0:
+            raise AssertionError(f"{tree}: flash_attention at "
+                                 f"{(B, H, Hkv, S, D, Dv)}: err {err}")
+        cs.emit(tree=str(tree), kernel="flash_attention", B=B, H=H, Hkv=Hkv,
+                S=S, D=D, Dv=Dv, max_abs_err=err, ms=cs.time_ms(call),
+                kernel_device_ms=cs.device_ms(call, "flash_attention"))
+
+
 FAMILIES = {"proximity": proximity, "gate": gate, "cell_sums": cell_sums,
-            "capacity_assign": capacity_assign}
+            "capacity_assign": capacity_assign, "attention": attention}
 
 
 def turn(tree: Path, only):
