@@ -139,7 +139,8 @@ and prints no result):
               MLA decode in torch ops (0 flash_decode launches), the
               gate once a step (65 launches); every layer, dense stack
               first, against the plain versions
-  9. serve_cpu the smoke config on the card against the port on the CPU,
+  9. serve_cpu the smoke configs of qwen3-moe-30b-a3b, rwkv6-1.6b and
+              zamba2-1.2b on the card against the port on the CPU,
               teacher-forced (logits within the bf16 tolerance)
  10. train    the training path: the flash-attention backward (with the
               forward's row log-sum-exp) at tinyllama-1.1b's and
@@ -164,6 +165,24 @@ and prints no result):
               of 7 at D 128, QKV bias) serving 4 x 512 prompts and 16
               greedy steps, then every layer through the kernels and
               through the plain versions
+ 12. recurrent_serve rwkv6-1.6b (24 layers, chunked WKV) and zamba2-1.2b
+              (38 Mamba2 layers, the shared attention block at 2 d every
+              6, 32 heads at D 128) at full width and depth, random
+              weights drawn on the card (1.60 B and 1.28 B parameters
+              allocated, printed beside `param_count()`), serving 16 x
+              512 prompts and 64 greedy steps: launches set to 0 just
+              before and read just after (zamba2 7 attention, 448
+              decode; rwkv6 none), prefill s, decode ms a step, peak
+              memory; the chunked prefill against the exact recurrence
+              (a prefill of 384 tokens and 128 teacher-forced decode
+              steps against a prefill of 512): every layer in bf16
+              within LAYER_TOL, end to end in bf16 and in float32
+              (a REPRO_FORCE_F32=1 subprocess) within SPLIT_ROWS, set
+              per model from the H100's readings; zamba2's shared
+              block, every invocation of the same prefill and decode,
+              through the kernels and through their plain versions.
+              The attention kernels at
+              zamba2's shapes are in phase kernels
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -183,7 +202,8 @@ the busy share) and its kernels by time. It prints no result line.
     python3 chip_smoke.py --profile-serve 8
 
 does the same for the serve phase's model: one traced prefill, then 8
-untraced and 8 traced decode steps.
+untraced and 8 traced decode steps (`--profile-arch zamba2-1.2b`: of
+that arch at full width and depth instead).
 
     python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
         --scale-steps 3 --cpu-steps 20 --epi-steps 50 \
@@ -241,6 +261,19 @@ SERVE_MAX = 0.15
 #: within the two versions' rounding difference)
 LAYER_TOL = 2e-2
 FLIP_MAX = 0.05
+#: phase recurrent_serve, the chunked prefill against the recurrence
+#: (a prefill of 384 tokens and 128 decode steps against one of 512):
+#: each layer within LAYER_TOL (the shared block reads 1.73e-2: the
+#: attention kernel on one side, flash decode on the other); end to end,
+#: per model and dtype, (median, max) row limits, each about 3x the
+#: H100's readings (PERF.md §6: float32 rwkv6 1.6e-5 / 1.9e-5,
+#: zamba2 2.8e-3 / 1.7e-2; bfloat16 rwkv6 0.036 / 0.046, zamba2 0.162 /
+#: 0.229, 0.132 / 0.282 through the plain versions; the CPU gives the
+#: same order with the same weights, `tools/recurrent_split_gap.py`)
+SPLIT_ROWS = {("rwkv6-1.6b", "float32"): (5e-5, 1e-4),
+              ("zamba2-1.2b", "float32"): (1e-2, 5e-2),
+              ("rwkv6-1.6b", "bfloat16"): (0.1, 0.15),
+              ("zamba2-1.2b", "bfloat16"): (0.35, 0.5)}
 #: float32 operations per pair test: 2 sub, 2 abs, 2 sub (area - d),
 #: 2 min, 1 mul, 1 fma (2), 1 compare
 OPS_PER_PAIR = 12
@@ -1020,7 +1053,9 @@ def check_lm_kernels(dev):
     and on tie-heavy logits, the attention kernels in float32; and the
     two kernels of deepseek-v3-671b's prefill (phase mla_serve): the
     attention at Dk 192, Dv 128 (16 x 512 tokens, 128 heads) and the
-    gate over 256 experts with its router bias."""
+    gate over 256 experts with its router bias; and zamba2-1.2b's shared
+    block (phase recurrent_serve): 32 query and 32 KV heads at D 128,
+    the attention over 16 x 512 tokens, decode over a cache of 576."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "moe_gate": [check_moe_gate(8192, 128, 8, f32, dev),
@@ -1033,10 +1068,12 @@ def check_lm_kernels(dev):
         "flash_attention": [
             check_flash_attention(16, 32, 4, 512, 64, bf, dev),
             check_flash_attention(2, 8, 2, 384, 128, f32, dev),
-            check_flash_attention(16, 128, 128, 512, 192, bf, dev, Dv=128)],
+            check_flash_attention(16, 128, 128, 512, 192, bf, dev, Dv=128),
+            check_flash_attention(16, 32, 32, 512, 128, bf, dev)],
         "flash_decode": [
             check_flash_decode(16, 32, 4, 576, 64, 543, bf, dev),
-            check_flash_decode(4, 8, 2, 1000, 128, 777, f32, dev)],
+            check_flash_decode(4, 8, 2, 1000, 128, 777, f32, dev),
+            check_flash_decode(16, 32, 32, 576, 128, 543, bf, dev)],
     }
 
 
@@ -1049,16 +1086,27 @@ def _row_errs(got_logits, want_logits):
     return errs / scale, scale
 
 
-def _check_logits(what, got_logits, want_logits):
+def _logit_rows(got_logits, want_logits) -> dict:
+    """The median, 90th percentile and largest per-row error of
+    `_row_errs`, and the logits' scale."""
     errs, scale = _row_errs(got_logits, want_logits)
     q = torch.quantile(errs.flatten(),
                        torch.tensor([0.5, 0.9, 1.0])).tolist()
-    out = {"logit_scale": scale, "row_err_median": q[0],
-           "row_err_p90": q[1], "row_err_max": q[2]}
-    if q[0] > SERVE_TYP or q[2] > SERVE_MAX:
+    return {"logit_scale": scale, "row_err_median": q[0],
+            "row_err_p90": q[1], "row_err_max": q[2]}
+
+
+def _hold_rows(what, out: dict) -> dict:
+    """Raise unless the median row is within SERVE_TYP and every row
+    within SERVE_MAX."""
+    if out["row_err_median"] > SERVE_TYP or out["row_err_max"] > SERVE_MAX:
         raise AssertionError(f"{what}: logits differ beyond the bf16 "
                              f"tolerance: {out}")
     return out
+
+
+def _check_logits(what, got_logits, want_logits):
+    return _hold_rows(what, _logit_rows(got_logits, want_logits))
 
 
 @contextmanager
@@ -1336,39 +1384,44 @@ def mla_serve_phase(gen: int, smi: str, dev):
 
 
 def serve_cpu_phase(dev, gen: int = 16):
+    """The smoke configs of phase serve's model (GAIA on) and of the
+    recurrent families on the card against the port on the CPU,
+    teacher-forced on the CPU's tokens."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import example_gaia_config, serve
     from repro_torch.models import lm
-    cfg = get_smoke(SERVE["arch"])
-    gcfg = example_gaia_config(cfg)
     B, P = 8, 32
-    params = lm.init_params(torch.Generator().manual_seed(1), cfg)
-    cpu = serve(cfg, gcfg, B, P, gen, 1, "cpu", params=params,
-                keep_logits=True)
-    params = lm.init_params(torch.Generator().manual_seed(1), cfg)
-    params = lm.tree_map(lambda t: t.to(dev), params)
-    card = serve(cfg, gcfg, B, P, gen, 1, dev, params=params,
-                 forced=cpu["tokens"], keep_logits=True)
-    res = _check_logits("serve_cpu: card vs CPU", card["logits"],
-                        cpu["logits"])
-    same_steps = card["migration_steps"] == cpu["migration_steps"]
-    emit(phase="serve_cpu", arch=cfg.name, batch=B, prompt_len=P, gen=gen,
-         migrations=cpu["migrations"], same_migration_steps=same_steps,
-         **res)
-    if not same_steps:
-        raise AssertionError("serve_cpu: migrations differ")
+    for arch in (SERVE["arch"],) + RECURRENT_SERVE["archs"]:
+        cfg = get_smoke(arch)
+        gcfg = example_gaia_config(cfg) if cfg.moe is not None else None
+        params = lm.init_params(torch.Generator().manual_seed(1), cfg)
+        cpu = serve(cfg, gcfg, B, P, gen, 1, "cpu", params=params,
+                    keep_logits=True)
+        params = lm.init_params(torch.Generator().manual_seed(1), cfg)
+        params = lm.tree_map(lambda t: t.to(dev), params)
+        card = serve(cfg, gcfg, B, P, gen, 1, dev, params=params,
+                     forced=cpu["tokens"], keep_logits=True)
+        res = _check_logits(f"serve_cpu {cfg.name}: card vs CPU",
+                            card["logits"], cpu["logits"])
+        same_steps = card["migration_steps"] == cpu["migration_steps"]
+        emit(phase="serve_cpu", arch=cfg.name, batch=B, prompt_len=P,
+             gen=gen, migrations=cpu["migrations"],
+             same_migration_steps=same_steps, **res)
+        if not same_steps:
+            raise AssertionError(f"serve_cpu {cfg.name}: migrations differ")
 
 
-def profile_serve(steps: int, dev):
-    """Where the serve phase's model spends its time: one traced
-    prefill, then `steps` untraced and `steps` traced decode steps."""
+def profile_serve(steps: int, dev, arch: str = ""):
+    """Where the serve phase's model (or `arch`, at full width and
+    depth) spends its time: one traced prefill, then `steps` untraced
+    and `steps` traced decode steps."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.steps import argmax_first
     from repro_torch.models import lm
-    cfg = get_arch(SERVE["arch"])
+    cfg = get_arch(arch or SERVE["arch"])
     B, P = SERVE["batch"], SERVE["prompt_len"]
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     extras = lm.init_extras(cfg, dev)
@@ -1971,6 +2024,319 @@ def dense_serve_phase(gen: int, smi: str, dev):
         raise AssertionError(f"dense serve launched {launches}, want {want}")
     return res
 
+
+
+#: phase recurrent_serve: the recurrent families at full width and
+#: depth, serve's traffic (16 x 512 prompts); the chunked prefill is held
+#: against the recurrence by a prefill of SPLIT tokens and P - SPLIT
+#: teacher-forced decode steps
+RECURRENT_SERVE = dict(archs=("rwkv6-1.6b", "zamba2-1.2b"), batch=16,
+                       prompt_len=512, split=384, seed=0)
+
+
+def chunked_vs_recurrent(cfg, params, prompts, split: int, dev) -> dict:
+    """The last logits of a prefill of all P prompt tokens against a
+    prefill of `split` tokens followed by P - split exact decode steps
+    fed the prompt's next tokens: the chunked scan against the
+    recurrence at full width, end to end (`_logit_rows`)."""
+    from repro_torch.models import lm
+    prompts = prompts.to(dev)
+    B, P = prompts.shape
+    _, want = lm.prefill(params, {"tokens": prompts}, cfg, P)
+    cache, _ = lm.prefill(params, {"tokens": prompts[:, :split]}, cfg, P)
+    for pos in range(split, P):
+        cache, got = lm.decode_step(params, cache, prompts[:, pos], pos, {},
+                                    cfg)
+    del cache
+    return _logit_rows([got], [want[:, -1]])
+
+
+def layerwise_chunked_vs_recurrent(cfg, params, prompts, split: int, dev):
+    """The chunked form against the recurrence layer by layer, teacher-
+    forced on the chunked path's hidden states: each layer (rwkv6's
+    block; zamba2's shared block and each Mamba2 layer) over all P
+    tokens at once, against the same layer over the first `split`
+    tokens and then P - split exact decode steps from its carry (the
+    shared block: from its K/V of the `split` tokens), on the same
+    input. Rows P - split.. of each layer within LAYER_TOL."""
+    from repro_torch.models import blocks, lm, mamba2, rwkv6
+    from repro_torch.models.layers import embed_fwd
+    prompts = prompts.to(dev)
+    B, P = prompts.shape
+    agree = {}
+
+    def add(kind, got, want):
+        agree.setdefault(kind, _Agreement()).add(got, want, None, None)
+
+    x = emb0 = embed_fwd(params["embed"], prompts)
+    for i in range(cfg.n_layers):
+        p_l = lm.layer(params["layers"], i)
+        if cfg.rwkv is not None:
+            zero = lm.zero_rwkv_carry(cfg, B, dev)
+            full, _ = rwkv6.rwkv_block_fwd(p_l, x, zero, cfg=cfg)
+            _, carry = rwkv6.rwkv_block_fwd(p_l, x[:, :split], zero,
+                                            cfg=cfg)
+            steps = []
+            for t in range(split, P):
+                y, carry = rwkv6.rwkv_decode_step(p_l, x[:, t:t + 1], carry,
+                                                  cfg=cfg)
+                steps.append(y)
+            add("rwkv6 block", torch.cat(steps, 1), full[:, split:])
+            x = full
+            continue
+        if lm.shared_slot(cfg, i) is not None:
+            sp = params["shared_block"]
+            full, _ = blocks.shared_block_fwd(sp, x, emb0, cfg=cfg)
+            _, (k, v) = blocks.shared_block_fwd(
+                sp, x[:, :split], emb0[:, :split], cfg=cfg, return_kv=True)
+            kv = {n: t.new_zeros((B, P, *t.shape[2:])) for n, t in
+                  (("k", k), ("v", v))}
+            kv["k"][:, :split], kv["v"][:, :split] = k, v
+            steps = []
+            for t in range(split, P):
+                y, kv = blocks.shared_block_decode(
+                    sp, x[:, t:t + 1], emb0[:, t:t + 1], kv, t, cfg=cfg)
+                steps.append(y)
+            add("shared block", torch.cat(steps, 1), full[:, split:])
+            x = full
+        zero = lm.zero_mamba_carry(cfg, B, dev)
+        full, _ = mamba2.mamba2_fwd(p_l, x, zero, cfg=cfg)
+        _, carry = mamba2.mamba2_fwd(p_l, x[:, :split], zero, cfg=cfg)
+        steps = []
+        for t in range(split, P):
+            y, carry = mamba2.mamba2_fwd(p_l, x[:, t:t + 1], carry, cfg=cfg,
+                                         decode=True)
+            steps.append(y)
+        add("mamba2", torch.cat(steps, 1), full[:, split:])
+        x = full
+    res = {k: a.summary() for k, a in agree.items()}
+    bad = [k for k, r in res.items() if r["agreeing_row_err_max"] > LAYER_TOL]
+    if bad:
+        raise AssertionError(f"{cfg.name}: chunked against recurrent, layer "
+                             f"by layer, beyond LAYER_TOL: {res}")
+    return res
+
+
+def _hold_split(arch: str, dtype: str, r: dict) -> dict:
+    """Raise unless the chunked-against-recurrent rows of `arch` in
+    `dtype` are within SPLIT_ROWS."""
+    typ, most = SPLIT_ROWS[arch, dtype]
+    if r["row_err_median"] > typ or r["row_err_max"] > most:
+        raise AssertionError(f"{arch} in {dtype}: prefill "
+                             f"{RECURRENT_SERVE['split']} + decode steps "
+                             f"against one prefill beyond {(typ, most)}: "
+                             f"{r}")
+    return r
+
+
+def recurrent_f32_child(dev):
+    """Body of phase recurrent_serve's float32 subprocess
+    (REPRO_FORCE_F32=1): `chunked_vs_recurrent` of both models at full
+    width. Prints one JSON line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    B, P, split, seed = (RECURRENT_SERVE[k] for k in (
+        "batch", "prompt_len", "split", "seed"))
+    out = {}
+    for arch in RECURRENT_SERVE["archs"]:
+        cfg = get_arch(arch)
+        params = lm.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (B, P),
+            generator=torch.Generator().manual_seed(seed + 1))
+        out[arch] = {"dtype": str(params["embed"]["embedding"].dtype),
+                     **chunked_vs_recurrent(cfg, params, prompts, split,
+                                            dev)}
+        del params
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def recurrent_f32(smi: str) -> dict:
+    """The end-to-end chunked-against-recurrent check of both models in
+    float32, in a REPRO_FORCE_F32=1 subprocess, held within
+    SPLIT_ROWS."""
+    env = dict(os.environ, REPRO_FORCE_F32="1")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--recurrent-f32-child"], capture_output=True,
+                          text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"recurrent f32 child failed:\n{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit(phase="recurrent_serve", run="float32", card=smi, **res)
+    for arch, r in res.items():
+        if r["dtype"] != "torch.float32":
+            raise AssertionError(f"recurrent f32 child ran {r['dtype']}")
+        _hold_split(arch, "float32", r)
+    return res
+
+
+def hybrid_layerwise_vs_plain(cfg, params, prompts, tokens, dev):
+    """zamba2's layers of the same prefill and decode, teacher-forced on
+    the kernel run's tokens and hidden states: each shared-block
+    invocation through the kernels and through their plain versions from
+    the same input (rows within LAYER_TOL), the Mamba2 layers (no
+    kernel) on the kernel path; from the last invocation on, both paths
+    run to the logits (SERVE_TYP / SERVE_MAX)."""
+    from repro_torch.models import blocks, lm, mamba2
+    from repro_torch.models.layers import embed_fwd, lm_head_fwd, rmsnorm
+    prompts, tokens = prompts.to(dev), tokens.to(dev)
+    B, P = prompts.shape
+    gen = tokens.shape[1] - 1
+    sp = params["shared_block"]
+    last = max(i for i in range(cfg.n_layers)
+               if lm.shared_slot(cfg, i) is not None)
+    agree = {"prefill": _Agreement(), "decode": _Agreement()}
+
+    def both(kind, fn):
+        """fn(plain) through the kernels and through the plain
+        versions."""
+        with _gates(False, []):
+            out_k = fn(False)
+        with _gates(True, []):
+            out_p = fn(True)
+        agree[kind].add(out_k[0], out_p[0], None, None)
+        return out_k, out_p
+
+    def logit_err(hk, hp):
+        lk, lp = (lm_head_fwd(params["embed"], rmsnorm(
+            params["final_norm"], h, cfg.norm_eps)) for h in (hk, hp))
+        return (lk - lp).abs().amax(-1).float().flatten() / lk.abs().max()
+
+    emb0 = x = embed_fwd(params["embed"], prompts)
+    zero = lm.zero_mamba_carry(cfg, B, dev)
+    ks, vs, mstates = [], [], []
+    for i in range(cfg.n_layers):
+        if lm.shared_slot(cfg, i) is not None:
+            (x, kv), (xp, _) = both("prefill", lambda plain: (
+                blocks.shared_block_fwd(sp, x, emb0, cfg=cfg,
+                                        return_kv=True)))
+            ks.append(kv[0])
+            vs.append(kv[1])
+        p_m = lm.layer(params["layers"], i)
+        if i >= last:
+            xp, _ = mamba2.mamba2_fwd(p_m, xp, zero, cfg=cfg)
+        x, mc = mamba2.mamba2_fwd(p_m, x, zero, cfg=cfg)
+        mstates.append(mc)
+    logit_errs = [logit_err(x[:, -1:], xp[:, -1:])]
+    cache = lm._pad_cache_to(
+        {"mamba": lm._stacked(mstates),
+         "attn_k": torch.stack(ks), "attn_v": torch.stack(vs)}, cfg,
+        P + gen)
+    del ks, vs, mstates
+    for step in range(gen):
+        emb0 = x = embed_fwd(params["embed"], tokens[:, step, None])
+        for i in range(cfg.n_layers):
+            j = lm.shared_slot(cfg, i)
+            if j is not None:
+                kv = {"k": cache["attn_k"][j], "v": cache["attn_v"][j]}
+                twin = lm.tree_map(lambda t: t.clone(), kv)
+                (x, _), (xp, _) = both(
+                    "decode", lambda plain: blocks.shared_block_decode(
+                        sp, x, emb0, twin if plain else kv, P + step,
+                        cfg=cfg))
+                del twin
+            p_m = lm.layer(params["layers"], i)
+            c = lm.layer(cache["mamba"], i)
+            if i >= last:  # the plain path runs on from a copy
+                xp, _ = mamba2.mamba2_fwd(
+                    p_m, xp, lm.tree_map(lambda t: t.clone(), c), cfg=cfg,
+                    decode=True)
+            x, new = mamba2.mamba2_fwd(p_m, x, c, cfg=cfg, decode=True)
+            lm.tree_map(lambda a, b: a.copy_(b), c, new)
+        logit_errs.append(logit_err(x, xp))
+    res = {k: a.summary() for k, a in agree.items()}
+    le = torch.cat([e.flatten() for e in logit_errs]).cpu()
+    res["logits_row_err_median"] = float(le.median())
+    res["logits_row_err_max"] = float(le.max())
+    bad = [k for k in agree if res[k]["agreeing_row_err_max"] > LAYER_TOL]
+    if (res["logits_row_err_median"] > SERVE_TYP
+            or res["logits_row_err_max"] > SERVE_MAX):
+        bad.append("logits")
+    if bad:
+        raise AssertionError(f"{cfg.name}: kernels vs plain versions, layer "
+                             f"by layer, beyond the bf16 tolerance: {res}")
+    return res
+
+
+def recurrent_serve_phase(gen: int, smi: str, dev):
+    """rwkv6-1.6b and zamba2-1.2b at full width and depth (random weights
+    drawn on the card) serving 16 prompts of 512 tokens and `gen` greedy
+    steps through `launch/serve.py`: launches counted (zamba2: the
+    attention kernel once an invocation of its shared block, 7 a
+    prefill, and flash decode 7 a step; rwkv6: none); the chunked
+    prefill against the recurrence at full width (a prefill of `split`
+    tokens and P - split decode steps against a prefill of P): layer by
+    layer in bfloat16 (LAYER_TOL), end to end in bfloat16 and in
+    float32 (a subprocess), each within SPLIT_ROWS; zamba2's shared
+    block layer by layer against the plain versions."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    B, P, split, seed = (RECURRENT_SERVE[k] for k in (
+        "batch", "prompt_len", "split", "seed"))
+    out = {}
+    for arch in RECURRENT_SERVE["archs"]:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        allocated = sum(t.numel() for t in tree.leaves(params))
+        kbuild.reset_launches()
+        run = serve(cfg, None, B, P, gen, seed, dev, params=params,
+                    keep_logits=True)
+        launches = kbuild.launches()
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(lg).all()) for lg in run["logits"])
+        del run["logits"]
+        n_inv = lm.n_shared(cfg)
+        want = {"flash_attention": n_inv, "flash_decode": n_inv * gen,
+                "moe_gate": 0}
+        prompts = torch.randint(
+            0, cfg.vocab_size, (B, P),
+            generator=torch.Generator().manual_seed(seed + 1))
+        t0 = time.perf_counter()
+        split_bf16 = chunked_vs_recurrent(cfg, params, prompts, split, dev)
+        split_layers = layerwise_chunked_vs_recurrent(cfg, params, prompts,
+                                                      split, dev)
+        split_s = time.perf_counter() - t0
+        res = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+               "shared_invocations": n_inv,
+               "params_allocated": allocated,
+               "param_count": cfg.param_count(), "batch": B,
+               "prompt_len": P, "gen": gen, "cache_len": P + gen,
+               "launches": {k: launches[k] for k in want},
+               "max_memory_allocated": peak,
+               "prefill_s": run["prefill_s"],
+               "prefill_tokens_per_s": B * P / run["prefill_s"],
+               "decode_ms_per_step": 1e3 * run["decode_s"] / gen,
+               "decode_tokens_per_s": B * gen / run["decode_s"],
+               "logits_finite": finite,
+               "chunked_vs_recurrent": {
+                   "split": split, "s": split_s,
+                   "bf16_end_to_end": split_bf16,
+                   "bf16_layerwise": split_layers}}
+        if cfg.ssm is not None:
+            res["vs_plain_layerwise"] = hybrid_layerwise_vs_plain(
+                cfg, params, prompts, run["tokens"], dev)
+        emit(phase="recurrent_serve", **res)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"recurrent_serve {arch} launched "
+                                 f"{launches}, want {want}")
+        _hold_split(arch, "bfloat16", split_bf16)
+        if not finite or tuple(run["tokens"].shape) != (B, gen + 1):
+            raise AssertionError(f"recurrent_serve {arch}: non-finite "
+                                 f"logits or tokens of shape "
+                                 f"{tuple(run['tokens'].shape)}")
+        out[arch] = res
+        del params, run
+    torch.cuda.empty_cache()
+    out["float32"] = recurrent_f32(smi)
+    return out
 
 def run_engine(cfg, dev, seed=0):
     from repro_torch.core import Engine
@@ -3338,14 +3704,22 @@ def main():
                    help="decode steps of the dense serve (qwen2-7b)")
     p.add_argument("--train-cpu-child", action="store_true",
                    help=argparse.SUPPRESS)
+    p.add_argument("--recurrent-f32-child", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
+    p.add_argument("--profile-arch", default="",
+                   help="with --profile-serve: this arch at full width "
+                        "and depth instead (e.g. rwkv6-1.6b)")
     a = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is visible")
     if a.train_cpu_child:
         train_cpu_child(torch.device("cuda"))
+        return
+    if a.recurrent_f32_child:
+        recurrent_f32_child(torch.device("cuda"))
         return
     dev = torch.device("cuda")
     smi = card()
@@ -3354,7 +3728,7 @@ def main():
         profile(a.profile, dev, a.scenario, a.replicas)
         return
     if a.profile_serve:
-        profile_serve(a.profile_serve, dev)
+        profile_serve(a.profile_serve, dev, a.profile_arch)
         return
     seconds = {}
 
@@ -3434,6 +3808,8 @@ def main():
     train_shapes, train_launches, moe_launches = timed(
         "train", train, a.train_steps, a.train_moe_steps, smi, dev)
     timed("dense_serve", dense_serve_phase, a.dense_gen, smi, dev)
+    recurrent = timed("recurrent_serve", recurrent_serve_phase, a.gen, smi,
+                      dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -3489,6 +3865,9 @@ def main():
             "obs_launches": obs_launches.get(stem, 0),
             "sharded_launches": sharded_launches.get(stem, 0),
             "mla_serve_launches": mla_served["launches"].get(stem, 0),
+            "recurrent_serve_launches": {
+                arch: recurrent[arch]["launches"].get(stem, 0)
+                for arch in RECURRENT_SERVE["archs"]},
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
             **{f: main_shape[f] for f in (

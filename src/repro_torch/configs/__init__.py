@@ -3,8 +3,9 @@
 runs.
 
 The port runs the dense families (`yi-9b`, `tinyllama-1.1b`, `yi-6b`,
-`qwen2-7b`), `qwen3-moe-30b-a3b` and `deepseek-v3-671b`. The
-reference's other registered architectures raise `NotImplementedError` naming the ROADMAP.md item
+`qwen2-7b`), `qwen3-moe-30b-a3b`, `deepseek-v3-671b` and the recurrent
+families (`rwkv6-1.6b`, `zamba2-1.2b`). The reference's other registered
+architectures raise `NotImplementedError` naming the ROADMAP.md item
 that brings them; an unknown name raises `KeyError`, as there.
 """
 from __future__ import annotations
@@ -12,22 +13,21 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import (deepseek_v3_671b, qwen2_7b,
-                                 qwen3_moe_30b_a3b, tinyllama_1_1b, yi_6b,
-                                 yi_9b)
+                                 qwen3_moe_30b_a3b, rwkv6_1_6b,
+                                 tinyllama_1_1b, yi_6b, yi_9b, zamba2_1_2b)
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES  # noqa: F401
 
 #: where the families this slice does not run come from
-LATER = ("ROADMAP.md queue 1, item 11 (the LM/MoE stack: rwkv6, mamba2, "
+LATER = ("ROADMAP.md queue 1, item 11.6 (the LM/MoE stack: the "
          "encoder-decoder and vision families)")
 
 _PORTED = (yi_9b, tinyllama_1_1b, yi_6b, qwen2_7b, qwen3_moe_30b_a3b,
-           deepseek_v3_671b)
+           deepseek_v3_671b, rwkv6_1_6b, zamba2_1_2b)
 ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _PORTED}
 _SMOKES = {m.CONFIG.name: m.smoke_config for m in _PORTED}
 
 #: the reference's registered architectures that are not ported yet
-NOT_PORTED = ("rwkv6-1.6b", "internvl2-2b", "seamless-m4t-medium",
-              "zamba2-1.2b")
+NOT_PORTED = ("internvl2-2b", "seamless-m4t-medium")
 
 
 def _known(name: str) -> None:

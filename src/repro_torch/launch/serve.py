@@ -1,6 +1,8 @@
 """Batched greedy serving of an LM, with GAIA expert placement online
 for an MoE one — the loop of the reference's `examples/serve_moe.py` as
-a function.
+a function. Every ported family serves: the dense and MoE transformer
+stacks, MLA, and the recurrent rwkv6 and zamba2 (whose prompt length
+must be a multiple of the chunk, or within one).
 
 Prefill the prompts, then decode greedily. After each decode step GAIA
 observes the step's traffic (synthesised from the generated tokens as
@@ -11,6 +13,7 @@ table (`extras["placement"]`) follows. Both belong to the MoE stack
 (`layers`): a config's leading `first_k_dense` layers have no experts.
 
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 Unlike the example, the permutation the weights are currently stored in
 is kept and passed as `perm_old` to `gaia_moe.migration_index`; the
@@ -64,7 +67,7 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
           keep_logits: bool = False) -> dict:
     """Prefill `batch` prompts of `prompt_len` tokens and decode `gen`
     greedy steps, with GAIA expert placement (`gaia_cfg`, None for off;
-    a dense config serves with None).
+    a config without experts serves with None).
 
     Weights are drawn from `seed` on the device unless `params` is given
     (its expert leaves are then permuted in place by migrations);

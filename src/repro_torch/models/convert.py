@@ -2,10 +2,12 @@
 
 The reference's pytrees, taken to numpy with `np.asarray`, become the
 port's nested dicts of tensors with the same keys, shapes and dtypes:
-the parameters, `extras` (`router_bias`, `placement`) and KV caches of
+the parameters, `extras` (`router_bias`, `placement`) and caches of
 `repro.models.lm` (GQA's {"k", "v"} pairs, or MLA's latent arrays, a
-bare array under each stack's name), and the GAIA-MoE state of
-`repro.core.gaia_moe` (its `ptr` and `step` as Python ints).
+bare array under each stack's name; RWKV6's stacked carry {"state",
+"shift_a", "shift_f"}; zamba2's {"mamba": {"ssm", "conv"}, "attn_k",
+"attn_v"}), and the GAIA-MoE state of `repro.core.gaia_moe` (its `ptr`
+and `step` as Python ints).
 
 JAX hands bfloat16 out as `ml_dtypes.bfloat16` numpy arrays, which
 `torch.from_numpy` refuses. They are told by `dtype.name == "bfloat16"`
@@ -29,8 +31,8 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """Nested dicts of numpy arrays (parameters, extras, a KV cache
-    {"main": {"k", "v"}}) -> the same of tensors on `device`."""
+    """Nested dicts of numpy arrays (parameters, extras, any of the
+    caches above) -> the same of tensors on `device`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

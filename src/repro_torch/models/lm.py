@@ -1,6 +1,7 @@
-"""Decoder-only LM assembly for transformer stacks — the port of
-`repro.models.lm`'s init / loss / prefill / decode for the dense, MoE
-and MLA + MoE (DeepSeek-V3) families.
+"""Decoder-only LM assembly — the port of `repro.models.lm`'s init /
+loss / prefill / decode for the dense, MoE and MLA + MoE (DeepSeek-V3)
+transformer stacks and for the recurrent families: RWKV6 and the
+Mamba2 hybrid with zamba2's shared attention block.
 
 Layers are stacked (L, ...) as in the reference and driven by a Python
 loop over layers where the reference uses `lax.scan`; training with
@@ -12,8 +13,13 @@ router bias and the placement index the MoE stack only. A config with
 `mtp_depth` has the multi-token-prediction head `mtp`, which only the
 loss runs. Caches are ``{"main": {"k", "v"}}`` of shape (L, B, Smax,
 Hkv, Dh), or for MLA ``{"dense": (Ld, B, Smax, r + rope), "main": (L,
-B, Smax, r + rope)}``. rwkv6, mamba2, encoder-decoder and vision tokens
-come with later slices and raise `NotImplementedError`.
+B, Smax, r + rope)}``; RWKV6's is the stacked recurrent carry
+``{"state": (L, B, H, N, N) float32, "shift_a", "shift_f": (L, B,
+d)}``, zamba2's ``{"mamba": {"ssm": (L, B, H, P, N) float32, "conv":
+(L, B, d_conv - 1, di + 2 N)}, "attn_k", "attn_v": (n_inv, B, Smax,
+Hkv, Dh)}``, one K/V slice for each invocation of the shared block
+(layers 0, shared_every, ...). Encoder-decoder and vision tokens come
+with a later slice and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import LATER
 from repro_torch.tree import tree_map
 from repro_torch.models import blocks
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as r6
 from repro_torch.models.layers import (COMPUTE_DT, _init, chunked_xent,
                                        embed_fwd, init_embed, init_rmsnorm,
                                        lm_head_fwd, rmsnorm, softmax_xent)
@@ -39,7 +47,6 @@ REMATS = ("none", "full")
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for what this slice does not run."""
     later = [name for name, on in (
-        ("rwkv", cfg.rwkv is not None), ("ssm", cfg.ssm is not None),
         ("encoder-decoder", cfg.encoder_decoder),
         ("vision tokens", bool(cfg.n_vision_tokens)),
     ) if on]
@@ -102,11 +109,20 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
                             cfg.tie_embeddings),
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
     }
+    d = cfg.d_model
+    if cfg.rwkv is not None:
+        p["layers"] = _init_stack(
+            gen, cfg.n_layers, lambda g: r6.init_rwkv_block(g, d, cfg))
+        return p
+    if cfg.ssm is not None:  # zamba2 hybrid
+        p["layers"] = _init_stack(
+            gen, cfg.n_layers, lambda g: m2.init_mamba2(g, d, cfg))
+        p["shared_block"] = blocks.init_shared_block(gen, cfg)
+        return p
     for name, n, moe in stacks(cfg):
         p[STACK_PARAMS[name]] = _init_stack(
             gen, n, lambda g, moe=moe: blocks.init_tf_block(g, cfg, moe))
     if cfg.mtp_depth:
-        d = cfg.d_model
         p["mtp"] = {"proj": _init(gen, (2 * d, d)),
                     "block": blocks.init_tf_block(gen, cfg, False),
                     "norm": init_rmsnorm(d, gen.device)}
@@ -142,6 +158,18 @@ def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
     check_ported(cfg)
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r} not in {REMATS}")
+
+    def run(fn, *args):
+        if train and remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    if cfg.rwkv is not None or cfg.ssm is not None:
+        recurrent = _rwkv_backbone if cfg.rwkv is not None else \
+            _hybrid_backbone
+        x, cache = recurrent(params, x, cfg, run, collect_cache)
+        return x, cache, {}
     counts, dropped, aux = [], [], []
     cache = {} if collect_cache else None
 
@@ -155,12 +183,7 @@ def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
     for name, n, moe in stacks(cfg):
         stack, kvs = params[STACK_PARAMS[name]], []
         for i in range(n):
-            if train and remat == "full":
-                x, kv, met = checkpoint(block, stack, moe, i, x,
-                                        use_reentrant=False,
-                                        preserve_rng_state=False)
-            else:
-                x, kv, met = block(stack, moe, i, x)
+            x, kv, met = run(block, stack, moe, i, x)
             if collect_cache:
                 kvs.append(kv)
             if met:
@@ -169,7 +192,7 @@ def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
                 if train:
                     aux.append(met["moe_aux_loss"])
         if collect_cache:  # GQA's (k, v) or MLA's latent, a layer each
-            cache[name] = tree_map(lambda *t: torch.stack(t), *kvs)
+            cache[name] = _stacked(kvs)
     metrics = {}
     if counts:
         metrics["expert_counts"] = torch.stack(counts)  # (L_moe, E)
@@ -177,6 +200,97 @@ def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
     if aux:
         metrics["moe_aux_loss"] = torch.stack(aux).mean()
     return x, cache, metrics
+
+
+def _stacked(parts):
+    """One (L, ...) tree of a list of per-layer trees."""
+    return tree_map(lambda *t: torch.stack(t), *parts)
+
+
+def zero_rwkv_carry(cfg, B: int, device):
+    """An RWKV6 layer's carry before the first token: {"state": (B, H,
+    N, N) float32, "shift_a", "shift_f": (B, d)} of zeros."""
+    H, N, d = cfg.n_heads, cfg.rwkv.head_dim, cfg.d_model
+    return {
+        "state": torch.zeros((B, H, N, N), dtype=torch.float32,
+                             device=device),
+        "shift_a": torch.zeros((B, d), dtype=COMPUTE_DT, device=device),
+        "shift_f": torch.zeros((B, d), dtype=COMPUTE_DT, device=device),
+    }
+
+
+def _rwkv_backbone(params, x, cfg, run, collect_cache):
+    """RWKV6: every layer starts its chunked scan from a zero carry and
+    leaves its final carry as the cache. Returns (h, cache or None)."""
+    zero = zero_rwkv_carry(cfg, x.shape[0], x.device)
+    carries = []
+
+    def body(p_layer, xc):
+        return r6.rwkv_block_fwd(p_layer, xc, zero, cfg=cfg)
+
+    for i in range(cfg.n_layers):
+        x, carry = run(body, layer(params["layers"], i), x)
+        if collect_cache:  # the shifts are views of a whole (B, S, d)
+            carries.append(tree_map(lambda t: t.contiguous(), carry))
+    return x, (_stacked(carries) if collect_cache else None)
+
+
+def shared_slot(cfg, i: int):
+    """zamba2's shared block runs before Mamba2 layer `i` when `i` is a
+    multiple of `shared_every`: the index of that invocation's K/V
+    slice, or None."""
+    return i // cfg.shared_every if i % cfg.shared_every == 0 else None
+
+
+def n_shared(cfg) -> int:
+    """How many times zamba2's shared block runs in one pass (0 for a
+    model without one)."""
+    se = cfg.shared_every
+    return -(-cfg.n_layers // se) if se else 0
+
+
+def zero_mamba_carry(cfg, B: int, device):
+    """A Mamba2 layer's carry before the first token: {"ssm": (B, H, P,
+    N) float32, "conv": (B, d_conv - 1, di + 2 N)} of zeros."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return {
+        "ssm": torch.zeros((B, di // s.head_dim, s.head_dim, s.d_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((B, s.d_conv - 1, di + 2 * s.d_state),
+                            dtype=COMPUTE_DT, device=device),
+    }
+
+
+def _hybrid_backbone(params, x, cfg, run, collect_cache):
+    """zamba2: the shared block (on concat(h, emb0)) before every
+    `shared_every`-th Mamba2 layer, each Mamba2 layer from a zero carry.
+    Returns (h, cache or None)."""
+    zero = zero_mamba_carry(cfg, x.shape[0], x.device)
+    emb0 = x
+    ks, vs, mstates = [], [], []
+
+    def body(p_m, xc, e0, shared: bool):
+        kv = None
+        if shared:
+            xc, kv = blocks.shared_block_fwd(
+                params["shared_block"], xc, e0, cfg=cfg,
+                return_kv=collect_cache)
+        xc, mcarry = m2.mamba2_fwd(p_m, xc, zero, cfg=cfg)
+        return xc, kv, mcarry
+
+    for i in range(cfg.n_layers):
+        x, kv, mcarry = run(body, layer(params["layers"], i), x, emb0,
+                            shared_slot(cfg, i) is not None)
+        if collect_cache:
+            mstates.append(mcarry)
+            if kv is not None:
+                ks.append(kv[0].to(COMPUTE_DT))
+                vs.append(kv[1].to(COMPUTE_DT))
+    if not collect_cache:
+        return x, None
+    return x, {"mamba": _stacked(mstates), "attn_k": torch.stack(ks),
+               "attn_v": torch.stack(vs)}
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +370,11 @@ def prefill(params, batch, cfg, cache_len: int):
 
 def _pad_cache_to(cache, cfg, cache_len: int):
     """Pad the prefill caches along S to cache_len: GQA's (L, B, S, Hkv,
-    Dh) pairs, or MLA's latent (L, B, S, r + rope) arrays."""
+    Dh) pairs, MLA's latent (L, B, S, r + rope) arrays, or zamba2's
+    (n_inv, B, S, Hkv, Dh) K/V stacks. RWKV6's carry has no S."""
     check_ported(cfg)
+    if cfg.rwkv is not None:
+        return cache
 
     def pad_seq(arr):
         S = arr.shape[2]
@@ -267,6 +384,9 @@ def _pad_cache_to(cache, cfg, cache_len: int):
         out[:, :, :S] = arr
         return out
 
+    if cfg.ssm is not None:
+        return dict(cache, attn_k=pad_seq(cache["attn_k"]),
+                    attn_v=pad_seq(cache["attn_v"]))
     if cfg.mla is not None:
         return {name: pad_seq(lat) for name, lat in cache.items()}
     return {name: {"k": pad_seq(kv[0]), "v": pad_seq(kv[1])}
@@ -276,11 +396,25 @@ def _pad_cache_to(cache, cfg, cache_len: int):
 def decode_step(params, cache, tokens, pos, extras, cfg):
     """One greedy decode step. tokens: (B,) int; pos: a Python int (or a
     scalar tensor). Writes the new K/V rows (MLA: latent lines) into
-    `cache` in place, the dense stack's and then the MoE stack's.
+    `cache` in place, the dense stack's and then the MoE stack's; the
+    recurrent families replace each layer's carry in place (zamba2 also
+    writes each shared-block invocation's K/V row).
 
     Returns (cache, logits (B, V))."""
     check_ported(cfg)
     x = embed_fwd(params["embed"], tokens[:, None])
+    if cfg.rwkv is not None or cfg.ssm is not None:
+        x = _recurrent_decode(params, cache, x, pos, cfg)
+    else:
+        x = _stacks_decode(params, cache, x, pos, extras, cfg)
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head_fwd(params["embed"], h)[:, 0, :]
+    return cache, logits
+
+
+def _stacks_decode(params, cache, x, pos, extras, cfg):
+    """The transformer stacks of one decode step on x (B, 1, d), dense
+    stack first; K/V rows written into `cache` in place. Returns h."""
     for name, n, moe in stacks(cfg):
         stack, kv = params[STACK_PARAMS[name]], cache[name]
         for i in range(n):
@@ -288,6 +422,31 @@ def decode_step(params, cache, tokens, pos, extras, cfg):
                 layer(stack, i), x, layer(kv, i), pos, cfg=cfg,
                 router_bias=extras["router_bias"][i] if moe else None,
                 placement=extras["placement"][i] if moe else None)
-    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_head_fwd(params["embed"], h)[:, 0, :]
-    return cache, logits
+    return x
+
+
+def _recurrent_decode(params, cache, x, pos, cfg):
+    """The layers of one decode step of RWKV6 or zamba2 on x (B, 1, d);
+    every layer's carry is copied into `cache` in place. Returns h."""
+    def store(dst, src):
+        tree_map(lambda a, b: a.copy_(b), dst, src)
+
+    if cfg.rwkv is not None:
+        for i in range(cfg.n_layers):
+            c = layer(cache, i)
+            x, new = r6.rwkv_decode_step(layer(params["layers"], i), x, c,
+                                         cfg=cfg)
+            store(c, new)
+        return x
+    emb0 = x
+    for i in range(cfg.n_layers):
+        j = shared_slot(cfg, i)
+        if j is not None:
+            kv = {"k": cache["attn_k"][j], "v": cache["attn_v"][j]}
+            x, _ = blocks.shared_block_decode(params["shared_block"], x,
+                                              emb0, kv, pos, cfg=cfg)
+        c = layer(cache["mamba"], i)
+        x, new = m2.mamba2_fwd(layer(params["layers"], i), x, c, cfg=cfg,
+                               decode=True)
+        store(c, new)
+    return x

@@ -168,9 +168,9 @@ def test_later_slices_raise_naming_the_roadmap(case):
     if LATER[case] is None:
         from repro import configs as rconfigs
         from repro_torch import configs as tconfigs
-        # yi-9b, the other dense families and MLA (deepseek-v3-671b) are
-        # ported since; the recurrent families are not
-        name = "rwkv6-1.6b"
+        # yi-9b, the other dense families, MLA (deepseek-v3-671b) and the
+        # recurrent families are ported since; the vision family is not
+        name = "internvl2-2b"
         assert rconfigs.get_arch(name).name == name
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             tconfigs.get_arch(name)

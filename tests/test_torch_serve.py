@@ -124,11 +124,11 @@ def test_other_archs_raise_naming_the_roadmap():
             tcfg.get_smoke(name)
     with pytest.raises(KeyError):
         tcfg.get_arch("no-such-arch")
-    # MLA is ported since; the recurrent families are not
-    rwkv = dataclasses.replace(tcfg.get_smoke(ARCH),
-                               rwkv=tcfg.base.RWKVConfig())
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        tlm.init_params(torch.Generator().manual_seed(0), rwkv)
+    # MLA and the recurrent families are ported since; the
+    # encoder-decoder family is not
+    encdec = dataclasses.replace(tcfg.get_smoke(ARCH), encoder_decoder=True)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        tlm.init_params(torch.Generator().manual_seed(0), encdec)
 
 
 # --- modules ---------------------------------------------------------------
