@@ -6,7 +6,7 @@ Phases, each of which raises on failure (so the script exits non-zero
 and prints no result):
 
   1. card     the GPU's name and power limit (nvidia-smi), torch, CUDA
-  2. build    the nine kernels built from the checkout's sources, with
+  2. build    the eleven kernels built from the checkout's sources, with
               nvcc's -Xptxas -v figures (registers, shared memory,
               spills) of every kernel
   3. kernels  each kernel held against its plain PyTorch version on the
@@ -147,7 +147,15 @@ and prints no result):
               qwen2-7b's shapes and in float32, and the gate's backward
               and probability-mean forward, against autograd through the
               plain versions (calls in a row bit-equal; library:
-              autograd through PyTorch's fused attention);
+              autograd through PyTorch's fused attention), the
+              attention backward also at zamba2's (2, 32/32, 4,096,
+              128), rwkv6-1.6b's WKV intra-chunk forward at its training
+              microbatch (2, 32, 4,096, 64; 32 chunks) and serve prefill
+              (16, 32, 512, 64) and its backward at the training shape,
+              against the plain versions (1e-5 of the largest |A|, 1e-4
+              of each gradient's largest value; one kernel a call, two
+              calls bit-equal; the SFUs' exponential time beside the
+              bound);
               tinyllama-1.1b at full width and depth through
               `launch.train`'s Trainer (8 x 4,096 tokens a step in 4
               microbatches, AdamW, remat, chunked loss, 6 steps, an
@@ -159,8 +167,10 @@ and prints no result):
               router_bias moves by +-1e-3, a restart from its state
               after step 2 bit for bit); one float32 step of the two
               smokes on the card against the CPU (a REPRO_FORCE_F32=1
-              subprocess). One 15.4 GB checkpoint is written: the card
-              machine takes ~45 GiB of disk writes a call
+              subprocess; also rwkv6-smoke, whose step runs the WKV
+              pair at N 16, c 16, and zamba2-smoke). One 15.4 GB
+              checkpoint is written: the card machine takes ~45 GiB of
+              disk writes a call
  11. dense_serve qwen2-7b at full width and depth (28 layers, a group
               of 7 at D 128, QKV bias) serving 4 x 512 prompts and 16
               greedy steps, then every layer through the kernels and
@@ -172,7 +182,8 @@ and prints no result):
               allocated, printed beside `param_count()`), serving 16 x
               512 prompts and 64 greedy steps: launches set to 0 just
               before and read just after (zamba2 7 attention, 448
-              decode; rwkv6 none), prefill s, decode ms a step, peak
+              decode; rwkv6 24 WKV forward, one a layer), prefill s,
+              decode ms a step, peak
               memory; the chunked prefill against the exact recurrence
               (a prefill of 384 tokens and 128 teacher-forced decode
               steps against a prefill of 512): every layer in bf16
@@ -183,6 +194,16 @@ and prints no result):
               through the kernels and through their plain versions.
               The attention kernels at
               zamba2's shapes are in phase kernels
+ 13. recurrent_train rwkv6-1.6b and zamba2-1.2b at full width and depth
+              through `launch.train`'s Trainer with phase train's recipe
+              (8 x 4,096 tokens in 4 microbatches, AdamW, remat, loss
+              chunk 1,024, 6 steps, no checkpoint): s/step (median of
+              the last 4), tokens/s, the model-FLOPs share, peak memory
+              and launches a step, exactly 192 / 96 WKV (rwkv6) and 56 /
+              28 attention (zamba2) forward / backward; finite losses,
+              every master weight moved; rwkv6 restarted from a host
+              copy of its state after step 3 ends bit for bit (every
+              leaf's sha256)
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -212,8 +233,10 @@ that arch at full width and depth instead).
         --shard-steps 20 --shard-churn 5
 
 is a shake-out run that cuts every phase short (--gen sets the serve
-phase's decode steps) but phases train and dense_serve
-(`--train-steps`, `--train-moe-steps`, `--dense-gen` cut those).
+phase's decode steps) but phases train, dense_serve and recurrent_train
+(`--train-steps`, `--train-moe-steps` and `--dense-gen` cut the first
+two; recurrent_train runs its 6 steps, the fewest its restart check
+needs room for).
 """
 from __future__ import annotations
 
@@ -241,6 +264,15 @@ import torch  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
+#: H100 SXM exponentials a second on the SFUs: 132 SMs x 16 a clock x
+#: the 1.98 GHz boost clock (the WKV kernels' real limit, printed beside
+#: their bound)
+PEAK_EXP_S = 132 * 16 * 1.98e9
+#: the WKV forward against its plain version, as a share of the largest
+#: |A|; the backward, of each gradient's largest |value|
+#: (tests/test_torch_wkv.py's FWD_TOL and BWD_TOL)
+WKV_FWD_TOL = 1e-5
+WKV_BWD_TOL = 1e-4
 #: kernel against plain version, as in tests/test_torch_attention.py
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: top_p of the MoE gate against its plain version
@@ -1638,14 +1670,122 @@ def check_moe_gate_bwd(T, E, k, dtype, dev, ties=False):
                 **bound(fwd_bytes, fwd_ops)}}
 
 
+def wkv_inputs(B, H, S, N, chunk, seed, dev, steep=False):
+    """r, k, l_prev and l (B, H, S, N) float32 as rwkv6's time mix gives
+    them: log-decays -exp(w) with w ~ N(-3, 1) (the trained range
+    straddles the init's -6 and 0), summed inside each chunk. `steep`:
+    log-decays uniform in -3.1..-2.9 a token, so l falls to about -380
+    in a chunk of 128, far past the -88 where a factored exp(-l)
+    overflows float32."""
+    r = _randn((B, H, S, N), seed, dev)
+    k = _randn((B, H, S, N), seed + 1, dev)
+    shape = (B, H, S // chunk, chunk, N)
+    if steep:
+        g = torch.Generator(device=dev).manual_seed(seed + 2)
+        lw = -2.9 - 0.2 * torch.rand(shape, generator=g, device=dev)
+    else:
+        lw = -torch.exp(_randn(shape, seed + 2, dev) - 3)
+    l = torch.cumsum(lw, 3)
+    return [t.reshape(B, H, S, N).contiguous() for t in (r, k, l - lw, l)]
+
+
+def _wkv_timings(what, call, plain, B, H, S, N, chunk, nbytes, per_pair):
+    """The times of a WKV kernel's call and of its plain version, its
+    bound (`per_pair` operations a (t, i, n) triple below the diagonal)
+    and the SFUs' time for its exponentials (one a triple); raises
+    unless a call runs one kernel."""
+    pairs = B * H * (S // chunk) * chunk * (chunk - 1) // 2 * N
+    dev_ms, per_call, names = device_profile(call, calls=10, expect=1)
+    if per_call != 1:
+        raise AssertionError(f"{what}: a call ran {names}, not one kernel")
+    return {"B": B, "H": H, "S": S, "N": N, "chunk": chunk,
+            "ms": time_ms(call), "kernel_device_ms": dev_ms,
+            "device_kernels": names,
+            "plain_ms": time_ms(plain, reps=3, batch=1, warmup=1),
+            **bound(nbytes, per_pair * pairs), "exponentials": pairs,
+            "sfu_exp_ms": 1e3 * pairs / PEAK_EXP_S, "library_ms": None}
+
+
+def check_wkv_intra(B, H, S, N, chunk, dev, steep=False):
+    """The WKV intra-chunk forward against its plain version (within
+    WKV_FWD_TOL of the largest |A|), two calls bit-equal, one kernel a
+    call (`steep`: see `wkv_inputs`). No single PyTorch call computes
+    A."""
+    from repro_torch.kernels.wkv import ops, ref
+    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 31, dev, steep)
+    got = ops.wkv_intra(r, k, lp, l, chunk)
+    want = ref.wkv_intra_plain(r, k, lp, l, chunk)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    what = f"wkv_intra at {(B, H, S, N)}, chunk {chunk}, steep {steep}"
+    if rel > WKV_FWD_TOL or not torch.equal(
+            got, ops.wkv_intra(r, k, lp, l, chunk)):
+        raise AssertionError(f"{what}: error {rel} of the largest |A|, "
+                             f"or two calls differ")
+    del got, want
+    return {"steep": steep, "max_abs_err": err, "err_of_largest": rel,
+            **_wkv_timings(
+                what, lambda: ops.wkv_intra(r, k, lp, l, chunk),
+                lambda: ref.wkv_intra_plain(r, k, lp, l, chunk),
+                B, H, S, N, chunk,
+                # read r, k, l_prev and l once; write A once
+                4 * B * H * S * N * 4 + B * H * S * chunk * 4,
+                5)}  # sub, exp, r k, fused add (2)
+
+
+def check_wkv_intra_bwd(B, H, S, N, chunk, dev, steep=False):
+    """The WKV backward kernel against the plain backward (each gradient
+    within WKV_BWD_TOL of its largest |value|), two calls bit-equal
+    (`steep`: see `wkv_inputs`). No single PyTorch call computes it."""
+    from repro_torch.kernels.wkv import ops, ref
+    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 41, dev, steep)
+    dA = _randn((B, H, S // chunk, chunk, chunk), 45, dev)
+    got = ops.wkv_intra_bwd(r, k, lp, l, dA, chunk)
+    want = ref.wkv_intra_bwd_plain(r, k, lp, l, dA, chunk)
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    what = (f"wkv_intra_bwd at {(B, H, S, N)}, chunk {chunk}, "
+            f"steep {steep}")
+    again = ops.wkv_intra_bwd(r, k, lp, l, dA, chunk)
+    if max(errs) > WKV_BWD_TOL or not all(
+            torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: errors (dr, dk, dl_prev, dl) "
+                             f"{errs}, or two calls differ")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want, again
+    return {"steep": steep, "max_abs_err": err, "errs_dr_dk_dlp_dl": errs,
+            **_wkv_timings(
+                what, lambda: ops.wkv_intra_bwd(r, k, lp, l, dA, chunk),
+                lambda: ref.wkv_intra_bwd_plain(r, k, lp, l, dA, chunk),
+                B, H, S, N, chunk,
+                # read r, k, l_prev, l and dA once; write dr, dk,
+                # dl_prev, dl once
+                8 * B * H * S * N * 4 + B * H * S * chunk * 4,
+                7)}  # sub, exp, dA e, two fused adds (2 each)
+
+
 def check_train_kernels(dev):
-    """The training path's kernels at the shapes its runs give them."""
+    """The training path's kernels at the shapes its runs give them:
+    tinyllama's and qwen2-7b's attention backward, zamba2's (32 query
+    and 32 KV heads at D 128, the branch without the group sum), the
+    gate's, and rwkv6-1.6b's WKV pair (the forward at the training
+    microbatch and at the serve prefill; both at the training microbatch
+    with steep decays too)."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "flash_attention_bwd": [
             check_flash_attention_bwd(2, 32, 4, 4096, 64, bf, dev),
             check_flash_attention_bwd(1, 28, 4, 4096, 128, bf, dev),
-            check_flash_attention_bwd(1, 4, 2, 1024, 16, f32, dev)],
+            check_flash_attention_bwd(1, 4, 2, 1024, 16, f32, dev),
+            check_flash_attention_bwd(2, 32, 32, 4096, 128, bf, dev)],
+        "wkv_intra": [check_wkv_intra(2, 32, 4096, 64, 128, dev),
+                      check_wkv_intra(16, 32, 512, 64, 128, dev),
+                      check_wkv_intra(2, 32, 4096, 64, 128, dev, True)],
+        "wkv_intra_bwd": [
+            check_wkv_intra_bwd(2, 32, 4096, 64, 128, dev),
+            check_wkv_intra_bwd(2, 32, 4096, 64, 128, dev, True)],
         "moe_gate_bwd": [check_moe_gate_bwd(8192, 128, 8, f32, dev),
                          check_moe_gate_bwd(8192, 128, 8, f32, dev,
                                             ties=True)],
@@ -1905,10 +2045,19 @@ def train_moe(steps: int, smi: str, dev):
     return launches
 
 
+#: phase train's float32 step, card against CPU: each smoke config and
+#: the backward kernel its step must launch on the card
+TRAIN_CPU = {"tinyllama-1.1b": "flash_attention_bwd",
+             "qwen3-moe-30b-a3b": "flash_attention_bwd",
+             "rwkv6-1.6b": "wkv_intra_bwd",
+             "zamba2-1.2b": "flash_attention_bwd"}
+
+
 def train_cpu_child(dev):
     """Body of phase train's float32 subprocess (REPRO_FORCE_F32=1): one
-    train step of the dense and the MoE smoke configs on `dev` and on
-    the CPU from the same weights and batch. Prints one JSON line."""
+    train step of the dense, the MoE and the two recurrent smoke configs
+    on `dev` and on the CPU from the same weights and batch. Prints one
+    JSON line."""
     from repro_torch import tree
     from repro_torch.configs import get_smoke
     from repro_torch.configs.base import ShapeConfig
@@ -1918,7 +2067,7 @@ def train_cpu_child(dev):
     from repro_torch.models import lm
     from repro_torch.optim.adamw import adamw_init
     out = {}
-    for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b"):
+    for arch in TRAIN_CPU:
         cfg = get_smoke(arch)
         S, B = 64, 8
         fn = build_train_step(cfg, ShapeConfig("t", S, B, "train"),
@@ -1941,7 +2090,8 @@ def train_cpu_child(dev):
                    zip(tree.leaves(g[0]), tree.leaves(c[0])))
         row = {"params_dtype": str(tree.leaves(params)[0].dtype),
                "metric_rel": rel, "param_err": perr,
-               "launches": {k: n for k, n in kbuild.launches().items() if n}}
+               "launches": {k: n for k, n in kbuild.launches().items() if n},
+               "backward_kernel": TRAIN_CPU[arch]}
         if cfg.moe is not None:
             row["router_bias_equal"] = torch.equal(
                 g[2]["router_bias"].cpu(), c[2]["router_bias"])
@@ -1968,7 +2118,7 @@ def train_cpu(smi: str):
                or rel["grad_norm"] > TRAIN_GRAD_TOL
                or r["param_err"] > TRAIN_F32_TOL
                or not r.get("router_bias_equal", True)
-               or r["launches"].get("flash_attention_bwd", 0) < 1)
+               or r["launches"].get(r["backward_kernel"], 0) < 1)
         if bad:
             raise AssertionError(f"train card vs cpu, {name}: {r}")
 
@@ -2265,7 +2415,8 @@ def recurrent_serve_phase(gen: int, smi: str, dev):
     drawn on the card) serving 16 prompts of 512 tokens and `gen` greedy
     steps through `launch/serve.py`: launches counted (zamba2: the
     attention kernel once an invocation of its shared block, 7 a
-    prefill, and flash decode 7 a step; rwkv6: none); the chunked
+    prefill, and flash decode 7 a step; rwkv6: the WKV kernel once a
+    layer, 24 a prefill, and none a decode step); the chunked
     prefill against the recurrence at full width (a prefill of `split`
     tokens and P - split decode steps against a prefill of P): layer by
     layer in bfloat16 (LAYER_TOL), end to end in bfloat16 and in
@@ -2295,7 +2446,9 @@ def recurrent_serve_phase(gen: int, smi: str, dev):
         del run["logits"]
         n_inv = lm.n_shared(cfg)
         want = {"flash_attention": n_inv, "flash_decode": n_inv * gen,
-                "moe_gate": 0}
+                "moe_gate": 0,
+                "wkv_intra": cfg.n_layers if cfg.rwkv is not None else 0,
+                "wkv_intra_bwd": 0}
         prompts = torch.randint(
             0, cfg.vocab_size, (B, P),
             generator=torch.Generator().manual_seed(seed + 1))
@@ -2337,6 +2490,138 @@ def recurrent_serve_phase(gen: int, smi: str, dev):
     torch.cuda.empty_cache()
     out["float32"] = recurrent_f32(smi)
     return out
+
+#: phase recurrent_train: both recurrent families at full width and
+#: depth with phase train's recipe (train_4k's 4,096 tokens, 8 rows in 4
+#: microbatches, AdamW, remat, loss chunk 1,024); no checkpoint is
+#: written (the call's disk), rwkv6 restarts from a host copy of its
+#: state after step `snapshot_at` and runs to step `steps` again (the
+#: median of the last 4 steps needs 4 after the snapshot's step)
+TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "zamba2-1.2b"), seq=4096,
+                       batch=8, microbatches=4, loss_chunk=1024,
+                       checkpoint_every=1000, snapshot_at=3, steps=6)
+
+
+def _recurrent_flops_per_token(cfg, params, seq: int) -> int:
+    """Model FLOPs a token of a train step: 6 x the matmul parameters as
+    a pass uses them (the input embedding is a lookup unless it is also
+    the head; zamba2's shared block counts once a pass through it) plus
+    6 S d_attn a shared-block pass for its causal attention. rwkv6's
+    intra-chunk term (~0.4% more) is not counted."""
+    from repro_torch import tree
+    from repro_torch.models import lm
+    n = sum(t.numel() for t in tree.leaves(params))
+    if "lm_head" in params["embed"]:
+        n -= params["embed"]["embedding"].numel()
+    n_inv = lm.n_shared(cfg)
+    if n_inv:
+        n += (n_inv - 1) * sum(t.numel() for t in
+                               tree.leaves(params["shared_block"]))
+        return 6 * n + 6 * n_inv * seq * 2 * cfg.d_model  # heads at 2 d
+    return 6 * n
+
+
+def recurrent_train_phase(smi: str, dev):
+    """rwkv6-1.6b and zamba2-1.2b at full width and depth through the
+    Trainer, `steps` steps each: s/step (median of the last 4), tokens/s,
+    the model-FLOPs share of 989 TFLOP/s, peak memory and launches a
+    step, which must be exactly rwkv6's WKV forward 2 x 24 x 4 (the
+    forward and remat's recompute) and backward 24 x 4, and zamba2's
+    attention forward 2 x 7 x 4 and backward 7 x 4; losses and grad
+    norms finite, every master weight moved; rwkv6 restarted from a host
+    copy of its state after step `snapshot_at` ends bit for bit where
+    the run ended (every leaf's sha256). Returns {arch: its row}."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import lm
+    spec = TRAIN_RECURRENT
+    mb, at, steps = (spec[k] for k in ("microbatches", "snapshot_at",
+                                       "steps"))
+    if not 0 < at < steps:
+        raise ValueError(f"recurrent_train: a snapshot after step {at} of "
+                         f"{steps} leaves no step to replay")
+    root = os.path.join(HERE, "results", "train_recurrent_ckpt")
+    out = {}
+    for arch in spec["archs"]:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        rwkv = cfg.rwkv is not None
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        res, per_step, secs, tr, snap = _train_run(
+            cfg, spec, steps, root, dev, snapshot_at=at if rwkv else 0)
+        wall = time.perf_counter() - t0
+        launches = kbuild.launches()
+        peak = torch.cuda.max_memory_allocated()
+        moved = _moved(cfg, res["opt_state"]["master"], dev)
+        flops_tok = _recurrent_flops_per_token(cfg, res["params"],
+                                               spec["seq"])
+        n_inv = lm.n_shared(cfg)
+        want = ({"wkv_intra": 2 * cfg.n_layers * mb,
+                 "wkv_intra_bwd": cfg.n_layers * mb,
+                 "flash_attention": 0, "flash_attention_bwd": 0} if rwkv
+                else {"flash_attention": 2 * n_inv * mb,
+                      "flash_attention_bwd": n_inv * mb,
+                      "wkv_intra": 0, "wkv_intra_bwd": 0})
+        restart = None
+        if rwkv:
+            first = (_digests(_state(res)), res["data_step"],
+                     per_step[-1]["loss"])
+            del res
+            t1 = time.perf_counter()
+            state = tree.tree_map(lambda t: t.to(dev), snap)
+            del snap
+            data = SyntheticLM(tr.data_cfg)
+            for i in range(at, steps):
+                *state, m = tr.step_fn(*state, data.batch_at(i))
+            second = (_digests(tuple(state)), steps, float(m["loss"]))
+            del state
+            restart = {"from_step": at, "steps": steps - at,
+                       "seconds": time.perf_counter() - t1,
+                       "leaves": len(first[0]),
+                       "bit_exact": first == second}
+        else:
+            del res
+        shutil.rmtree(root, ignore_errors=True)
+        s_step = statistics.median(secs[-4:])
+        tokens = spec["batch"] * spec["seq"]
+        row = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+               "shared_invocations": n_inv,
+               **{k: spec[k] for k in ("seq", "batch", "microbatches",
+                                       "loss_chunk")},
+               "steps": steps, "remat": "full", "optimizer": "adamw",
+               "s_per_step": s_step, "step_seconds": secs,
+               "tokens_per_s": tokens / s_step,
+               "model_flops_per_step": flops_tok * tokens,
+               "mfu_vs_989_tflops": flops_tok * tokens / s_step
+               / PEAK_BF16_S,
+               "max_memory_allocated": peak, "wall_s": wall,
+               "launches": {k: launches[k] for k in want},
+               "launches_per_step": {k: n / steps for k, n in
+                                     launches.items() if n},
+               "per_step": per_step, "params_moved_min": min(moved),
+               "restart": restart}
+        emit(phase="recurrent_train", **row)
+        if any(launches[k] != n * steps for k, n in want.items()):
+            raise AssertionError(f"recurrent_train {arch}: launched "
+                                 f"{launches}, want {want} a step")
+        if not _finite(per_step) or min(moved) <= 0:
+            raise AssertionError(f"recurrent_train {arch}: a non-finite "
+                                 f"loss or grad norm, or a weight that "
+                                 f"did not move")
+        if rwkv and not restart["bit_exact"]:
+            raise AssertionError(f"recurrent_train {arch}: the restart "
+                                 f"from step {at} differs")
+        out[arch] = row
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
 
 def run_engine(cfg, dev, seed=0):
     from repro_torch.core import Engine
@@ -3810,6 +4095,8 @@ def main():
     timed("dense_serve", dense_serve_phase, a.dense_gen, smi, dev)
     recurrent = timed("recurrent_serve", recurrent_serve_phase, a.gen, smi,
                       dev)
+    recurrent_train = timed("recurrent_train", recurrent_train_phase, smi,
+                            dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -3852,7 +4139,34 @@ def main():
                          src + "moe_gate/csrc/moe_gate_bwd.cu",
                          "src/repro/kernels/moe_gate/moe_gate.py:55",
                          moe_launches),
+        # port-only: the reference's jnp intra-chunk term of its WKV
+        # scan; launches from rwkv6-1.6b's run in phase recurrent_train
+        "wkv_intra": ("wkv_intra", "wkv_intra",
+                      src + "wkv/csrc/wkv_intra.cu",
+                      "src/repro/models/rwkv6.py:117",
+                      recurrent_train["rwkv6-1.6b"]["launches"]),
+        "wkv_intra_bwd": ("wkv_intra_bwd", "wkv_intra_bwd",
+                          src + "wkv/csrc/wkv_intra_bwd.cu",
+                          "src/repro/models/rwkv6.py:117",
+                          recurrent_train["rwkv6-1.6b"]["launches"]),
     }
+
+    def recurrent_launches(stem):
+        """A kernel's launches in each recurrent phase's runs."""
+        return {f"{phase}_launches": {arch: runs[arch]["launches"].get(
+                    stem, 0) for arch in spec["archs"]}
+                for phase, runs, spec in (
+                    ("recurrent_serve", recurrent, RECURRENT_SERVE),
+                    ("recurrent_train", recurrent_train, TRAIN_RECURRENT))}
+
+    def measured(shape):
+        """The kernels line's measured fields of a kernel's main shape."""
+        return {**{f: shape[f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+            **{f: shape.get(f) for f in ("kernel_device_ms",
+                                         "library_device_ms")}}
+
     kernels = []
     for k, (name, stem, source, replaces) in meta.items():
         main_shape = shapes[k][0]  # the shape the main path gives it
@@ -3865,27 +4179,17 @@ def main():
             "obs_launches": obs_launches.get(stem, 0),
             "sharded_launches": sharded_launches.get(stem, 0),
             "mla_serve_launches": mla_served["launches"].get(stem, 0),
-            "recurrent_serve_launches": {
-                arch: recurrent[arch]["launches"].get(stem, 0)
-                for arch in RECURRENT_SERVE["archs"]},
+            **recurrent_launches(stem),
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
-            **{f: main_shape[f] for f in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-            **{f: main_shape.get(f) for f in ("kernel_device_ms",
-                                              "library_device_ms")},
+            **measured(main_shape),
             "shapes": shapes[k] + train_shapes.get(f"{k}_g7", [])})
     for k, (name, stem, source, replaces, runs) in train_meta.items():
         main_shape = train_shapes[k][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[stem],
-            **{f: main_shape[f] for f in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-            **{f: main_shape.get(f) for f in ("kernel_device_ms",
-                                              "library_device_ms")},
+            **measured(main_shape), **recurrent_launches(stem),
             "shapes": train_shapes[k]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

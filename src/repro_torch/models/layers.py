@@ -97,6 +97,19 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
+def chunk_starts(h0, decay, inc):
+    """The state each chunk of a chunked linear recurrence starts from,
+    h_{j+1} = decay_j h_j + inc_j from h_0: (starts (B, H, n_chunks,
+    ...), the state after the last chunk). decay and inc: (B, H,
+    n_chunks, ...), broadcasting against h0 (B, H, ...). The only
+    sequential part of rwkv6's and Mamba2's chunked scans."""
+    h, starts = h0, []
+    for j in range(inc.shape[2]):
+        starts.append(h)
+        h = decay[:, :, j] * h + inc[:, :, j]
+    return torch.stack(starts, 2), h
+
+
 def init_embed(gen, vocab: int, d: int, tie: bool = False):
     p = {"embedding": _init(gen, (vocab, d), scale=0.02)}
     if not tie:

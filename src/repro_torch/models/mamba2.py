@@ -12,7 +12,9 @@ Chunked (chunk c, A = cumsum(log a)):
     inter:  Y += (C . exp(A)) h_0
     state:  h_c = exp(A_c) h_0 + sum_i exp(A_c - A_i) b_i x_i^T
 
-The chunks are scanned one at a time, as the reference's `lax.scan`.
+The chunks' intra terms, state increments and state contributions are
+batched over the chunks; only the state each chunk starts from is
+carried in a loop, where the reference's `lax.scan` steps whole chunks.
 Rounding follows the reference: the projections and the causal conv in
 COMPUTE_DT, silu and the scan in float32.
 """
@@ -21,7 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DT, _init, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (COMPUTE_DT, _init, chunk_starts,
+                                      init_rmsnorm, rmsnorm)
 
 
 def init_mamba2(gen, d: int, cfg):
@@ -46,37 +49,44 @@ def _ssd_chunked(xh, bh, ch, dt, A_log, h0, chunk: int):
     """xh: (B, S, H, P); bh, ch: (B, S, N); dt: (B, S, H) float32; h0:
     (B, H, P, N). S must be a multiple of the chunk or at most one chunk
     (the reference's reshape raises TypeError otherwise). Returns (y
-    (B, S, H, P) float32, h (B, H, P, N) float32)."""
+    (B, S, H, P) float32, h (B, H, P, N) float32).
+
+    Every chunk's intra term, state increment and state contribution is
+    one batched op over the chunks; only the state each chunk starts
+    from is carried in a loop (one (B, H, P, N) update a chunk), where
+    the reference scans whole chunks."""
     B, S, H, P = xh.shape
+    N = bh.shape[-1]
     c = min(chunk, S)
     if S % c:
         raise TypeError(f"_ssd_chunked: a sequence of {S} does not split "
                         f"into chunks of {c}")
+    nc = S // c
     a = -torch.exp(A_log)[None, None, :] * dt  # log decay (B, S, H), <= 0
-    xs = (xh * dt[..., None]).float().transpose(1, 2)  # (B, H, S, P)
-    bs, cs = bh.float(), ch.float()
-    As = a.float().transpose(1, 2)  # (B, H, S)
+    xs = (xh * dt[..., None]).float().transpose(1, 2).reshape(
+        B, H, nc, c, P)
+    bs, cs = (t.float().reshape(B, 1, nc, c, N) for t in (bh, ch))
+    Ac = torch.cumsum(a.float().transpose(1, 2).reshape(B, H, nc, c), -1)
+    # intra-chunk; entries i > t have a positive exponent, which
+    # overflows float32 once a chunk's decay passes ~88 (a full chunk of
+    # 128 at zamba2-1.2b's width does): it is replaced by -inf before the
+    # exponential, so the gradient is 0 there (the reference's where
+    # after exp gives 0 x inf = NaN in its backward)
     tril = torch.ones((c, c), dtype=torch.bool, device=xh.device).tril()
-    h = h0.float()
-    ys = []
-    for i in range(0, S, c):
-        xc, bc, cc = xs[:, :, i:i + c], bs[:, i:i + c], cs[:, i:i + c]
-        Ac = torch.cumsum(As[:, :, i:i + c], -1)  # (B, H, c)
-        # intra-chunk; entries i > t have a positive exponent (maybe inf),
-        # selected away
-        cb = torch.matmul(cc, bc.transpose(1, 2))[:, None]  # (B, 1, c, c)
-        L = torch.where(tril, torch.exp(Ac[:, :, :, None]
-                                        - Ac[:, :, None, :]), 0.0)
-        y = torch.matmul(cb * L, xc)
-        # inter-chunk (state h enters each position with decay exp(A_t))
-        y = y + torch.matmul(cc[:, None], h.transpose(-1, -2)) \
-            * torch.exp(Ac)[..., None]
-        # state update
-        decay_to_end = torch.exp(Ac[:, :, -1:] - Ac)  # (B, H, c)
-        h = torch.exp(Ac[:, :, -1])[..., None, None] * h + torch.matmul(
-            (xc * decay_to_end[..., None]).transpose(-1, -2), bc[:, None])
-        ys.append(y)
-    return torch.cat(ys, 2).transpose(1, 2), h
+    cb = torch.matmul(cs, bs.transpose(-1, -2))  # (B, 1, nc, c, c)
+    L = torch.exp(torch.where(tril, Ac[..., :, None] - Ac[..., None, :],
+                              -torch.inf))
+    y = torch.matmul(cb * L, xs)  # (B, H, nc, c, P)
+    del L
+    # the state each chunk starts from
+    decay_to_end = torch.exp(Ac[..., -1:] - Ac)  # (B, H, nc, c)
+    inc = torch.matmul((xs * decay_to_end[..., None]).transpose(-1, -2), bs)
+    decay = torch.exp(Ac[..., -1])[..., None, None]  # (B, H, nc, 1, 1)
+    starts, h = chunk_starts(h0.float(), decay, inc)
+    # inter-chunk (state h enters each position with decay exp(A_t))
+    y = y + torch.matmul(cs, starts.transpose(-1, -2)) \
+        * torch.exp(Ac)[..., None]
+    return y.reshape(B, H, S, P).transpose(1, 2), h
 
 
 def mamba2_fwd(p, x, carry, *, cfg, decode: bool = False):

@@ -11,19 +11,24 @@ Chunked form (chunk c): with l_t = cumsum(log w) inside the chunk,
          + (r_t . u . k_t) v_t
     S_c  = diag(exp(l_c)) S_0 + sum_i (k_i . exp(l_c - l_i))^T v_i
 Every exponent that is kept is <= 0, so the chunked form is stable. The
-prefill scans the chunks one at a time, as the reference's `lax.scan`
-does, so only one chunk's (B, H, c, c, N) intra-chunk term exists at a
-time (2.15 GB in float32 at rwkv6-1.6b's 16 x 512 prefill). Decode runs
-the exact recurrence, one token a call. Rounding to COMPUTE_DT happens
-where the reference rounds: each projection's output, the scan and the
-decay in float32, `ln_x` in COMPUTE_DT.
+intra-chunk matrix of every chunk comes from one launch of the WKV
+kernel (`kernels.wkv`, differentiable: its backward is a kernel too),
+which never holds the (B, H, c, c, N) term the reference builds a chunk
+at a time; the intra output, the bonus and each chunk's state
+contribution are batched over the chunks, and only the state each chunk
+starts from is carried in a loop (one (B, H, N, N) update a chunk).
+Decode runs the exact recurrence, one token a call. Rounding to
+COMPUTE_DT happens where the reference rounds: each projection's output,
+the scan and the decay in float32, `ln_x` in COMPUTE_DT.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DT, _init, init_rmsnorm, rmsnorm
+from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.models.layers import (COMPUTE_DT, _init, chunk_starts,
+                                      init_rmsnorm, rmsnorm)
 
 
 def init_rwkv_block(gen, d: int, cfg):
@@ -94,35 +99,6 @@ def _gate_out(p, o, g):
     return torch.matmul(out, _w(p, "t_o"))
 
 
-def _chunk_step(S0, rc, kc, vc, lwc, u):
-    """One chunk of the scan. S0: (B, H, N, N) float32; rc, kc, vc, lwc:
-    (B, H, c, N) float32. Returns (S1, o (B, H, c, N))."""
-    c = rc.shape[2]
-    l = torch.cumsum(lwc, 2)  # (B, H, c, N), decreasing
-    l_prev = l - lwc  # l_{t-1}
-    # intra-chunk: A[t, i] = sum_n r_tn k_in exp(l_{t-1,n} - l_{i,n}),
-    # i < t. The exponent of an entry i >= t is positive and may be inf:
-    # it is selected away (never multiplied by a zero mask: inf * 0 = NaN)
-    tri = torch.ones((c, c), dtype=torch.bool, device=rc.device).tril(-1)
-    decay = torch.where(
-        tri[:, :, None],
-        torch.exp(l_prev[:, :, :, None, :] - l[:, :, None, :, :]), 0.0)
-    rk = decay * rc[:, :, :, None, :]
-    del decay  # at most two (B, H, c, c, N) tensors at once
-    A = (rk * kc[:, :, None, :, :]).sum(-1)
-    del rk
-    o = torch.matmul(A, vc)
-    # diagonal bonus: (r_t . u . k_t) v_t
-    o = o + (rc * u * kc).sum(-1, keepdim=True) * vc
-    # state contribution
-    o = o + torch.matmul(rc * torch.exp(l_prev), S0)
-    # state update
-    kd = kc * torch.exp(l[:, :, -1:, :] - l)
-    S1 = torch.exp(l[:, :, -1, :])[..., None] * S0 + torch.matmul(
-        kd.transpose(-1, -2), vc)
-    return S1, o
-
-
 def rwkv_time_mix(p, xn, state, shift_last, *, cfg):
     """Chunked RWKV6 time mix.
 
@@ -134,6 +110,7 @@ def rwkv_time_mix(p, xn, state, shift_last, *, cfg):
     c = min(cfg.rwkv.chunk, S)
     if S % c:
         raise AssertionError((S, c))
+    nc = S // c
     xr, xk, xv, xw, xg = _mix_rkvwg(p, xn, shift_last)
     r = torch.matmul(xr, _w(p, "t_r"))
     k = torch.matmul(xk, _w(p, "t_k"))
@@ -141,18 +118,31 @@ def rwkv_time_mix(p, xn, state, shift_last, *, cfg):
     g = torch.matmul(xg, _w(p, "t_g"))
     logw = _log_decay(p, xw)
 
-    def heads(x):
-        return x.reshape(B, S, H, N).transpose(1, 2).float()  # (B,H,S,N)
+    def heads(x):  # (B, H, S, N) float32
+        return x.reshape(B, S, H, N).transpose(1, 2).float().contiguous()
 
     rh, kh, vh, lw = heads(r), heads(k), heads(v), heads(logw)
-    u = p["bonus_u"][None, :, None, :]
-    st = state.float()
-    outs = []
-    for i in range(0, S, c):
-        st, o = _chunk_step(st, rh[:, :, i:i + c], kh[:, :, i:i + c],
-                            vh[:, :, i:i + c], lw[:, :, i:i + c], u)
-        outs.append(o)
-    out = torch.cat(outs, 2).transpose(1, 2).reshape(B, S, D)
+    lw = lw.reshape(B, H, nc, c, N)
+    l = torch.cumsum(lw, 3)  # (B, H, nc, c, N), decreasing in a chunk
+    l_prev = l - lw  # l_{t-1}
+    # intra-chunk: A[t, i] = sum_n r_tn k_in exp(l_{t-1,n} - l_{i,n}),
+    # i < t, every chunk in one launch
+    A = wkv_ops.wkv_intra(rh, kh, l_prev.reshape(B, H, S, N),
+                          l.reshape(B, H, S, N), c)
+    r5, k5, v5 = (t.reshape(B, H, nc, c, N) for t in (rh, kh, vh))
+    o = torch.matmul(A, v5)
+    del A
+    # diagonal bonus: (r_t . u . k_t) v_t
+    u = p["bonus_u"][None, :, None, None, :]
+    o = o + (r5 * u * k5).sum(-1, keepdim=True) * v5
+    # the state each chunk starts from: the only sequential part
+    decay = torch.exp(l[:, :, :, -1, :])[..., None]  # (B, H, nc, N, 1)
+    kd = k5 * torch.exp(l[:, :, :, -1:, :] - l)
+    kv = torch.matmul(kd.transpose(-1, -2), v5)  # (B, H, nc, N, N)
+    starts, st = chunk_starts(state.float(), decay, kv)
+    # state contribution
+    o = o + torch.matmul(r5 * torch.exp(l_prev), starts)
+    out = o.reshape(B, H, S, N).transpose(1, 2).reshape(B, S, D)
     return _gate_out(p, out, g), st, xn[:, -1, :]
 
 

@@ -204,9 +204,14 @@ def test_trainer_runs_on_the_card_unless_told(tmp_path, monkeypatch):
     assert make().device == torch.device("cuda")
 
 
+#: the recurrent smokes train on two of their 16-token chunks (a
+#: sequence must be a multiple of the chunk); the others on 16 tokens
+SEQ = {"rwkv6-1.6b": 32, "zamba2-1.2b": 32}
+
+
 def _lm_trainer(ckpt_dir, arch, device="cpu", steps=4):
     cfg = tcfg.get_smoke(arch)
-    return make_trainer(cfg, seq=16, batch=4, steps=steps,
+    return make_trainer(cfg, seq=SEQ.get(arch, 16), batch=4, steps=steps,
                         ckpt_dir=str(ckpt_dir), device=device,
                         px=TrainCtx(num_microbatches=2, loss_chunk=8),
                         checkpoint_every=2, log=lambda s: None)
@@ -217,10 +222,13 @@ def _manifest_shas(d, step):
         return [x["sha256"] for x in json.load(f)["files"]]
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-moe-30b-a3b",
+                                  "rwkv6-1.6b", "zamba2-1.2b"])
 def test_lm_crash_restart_bit_exact(tmp_path, arch):
     """The real train step (AdamW, microbatches, chunked loss, remat,
-    for MoE the router-bias update): killed after step 3, restarted from
+    for MoE the router-bias update; rwkv6 through the WKV kernel's
+    differentiable wrapper, zamba2 through its shared block's seven
+    passes a step summed into one leaf): killed after step 3, restarted from
     its step-2 checkpoint, it ends with the uninterrupted run's params,
     optimizer state, extras and data cursor, bit for bit."""
     torch.set_num_threads(1)
@@ -235,6 +243,22 @@ def test_lm_crash_restart_bit_exact(tmp_path, arch):
     assert ref["data_step"] == out["data_step"] == 4
     assert _manifest_shas(d1, 4) == _manifest_shas(d2, 4)
     assert float(ref["metrics"]["loss"]) == float(out["metrics"]["loss"])
+
+
+def test_train_cli_runs_rwkv6_smoke_on_the_cpu(tmp_path, capsys):
+    """`python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke
+    --device cpu` takes a step and prints its JSON line."""
+    from repro_torch.launch import train as ltrain
+    torch.set_num_threads(1)
+    ltrain.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                 "--steps", "1", "--seq", "32", "--batch", "4",
+                 "--microbatches", "2", "--loss-chunk", "8",
+                 "--checkpoint-every", "1", "--ckpt", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == "rwkv6-smoke" and out["device"] == "cpu"
+    assert out["data_step"] == 1 and out["steps"] == 1
+    assert np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])
+    assert CheckpointManager(str(tmp_path)).latest_step() == 1
 
 
 # --- watchdog ------------------------------------------------------------------

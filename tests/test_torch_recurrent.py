@@ -495,6 +495,51 @@ def test_serve_needs_a_gpu_unless_asked_for_the_cpu(arch):
         tserve.serve(tc, object(), 2, 16, 2, 0, "cpu")
 
 
+def test_ssd_gradients_finite_where_a_chunk_decays_past_float32():
+    """A full chunk of 128 whose decay sums past ~88 (A_log 0, dt ~1: the
+    decay zamba2-1.2b's init gives): the port's SSD output equals the
+    reference's, its gradients are finite, and its x gradient equals the
+    reference's; the reference's own dt and A_log gradients are NaN
+    there (`where` after `exp`: 0 x inf in its backward), the port masks
+    the exponent before the exponential. The port's dt and A_log
+    gradients are held against the reference's on the same inputs in
+    chunks of 16, where no exponent passes 16 (the SSD's value does not
+    depend on the chunk): dt's within F32_TOL, A_log's (one sum a head
+    over the whole chunk's reverse cumsum) within GRAD_TOL. The
+    reference's own chunk of 128 in float32 is 3.1e-5 from a float64
+    recurrence in A_log's gradient at dt 0.5, where it does not
+    overflow."""
+    r = np.random.default_rng(9)
+    Bq, Sq, H, P, N = 1, 128, 2, 4, 8
+    xh, bh, ch = (r.normal(size=s).astype(np.float32)
+                  for s in ((Bq, Sq, H, P), (Bq, Sq, N), (Bq, Sq, N)))
+    dt = np.full((Bq, Sq, H), 1.0, np.float32)
+    A_log, h0 = np.zeros(H, np.float32), np.zeros((Bq, H, P, N), np.float32)
+
+    def ref(x, d, a, chunk=Sq):
+        y, h = rm2._ssd_chunked(x, jnp.asarray(bh), jnp.asarray(ch), d, a,
+                                jnp.asarray(h0), chunk)
+        return y.sum() + h.sum(), (y, h)
+
+    args = (jnp.asarray(xh), jnp.asarray(dt), jnp.asarray(A_log))
+    (_, (ry, rh)), rg = jax.value_and_grad(ref, argnums=(0, 1, 2),
+                                           has_aux=True)(*args)
+    wg = jax.grad(lambda x, d, a: ref(x, d, a, 16)[0],
+                  argnums=(0, 1, 2))(*args)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xh, dt, A_log)]
+    ty, th = tm2._ssd_chunked(leaves[0], torch.from_numpy(bh),
+                              torch.from_numpy(ch), leaves[1], leaves[2],
+                              torch.from_numpy(h0), Sq)
+    tg = torch.autograd.grad(ty.sum() + th.sum(), leaves)
+    assert max(_errs((ty, th), (ry, rh))) <= F32_TOL
+    assert all(bool(torch.isfinite(g).all()) for g in tg)
+    assert _errs(tg[0], rg[0])[0] <= F32_TOL
+    assert not np.isfinite(np.asarray(rg[1])).all()
+    assert all(np.isfinite(np.asarray(g)).all() for g in wg)
+    errs = _errs(tg, wg)
+    assert max(errs[:2]) <= F32_TOL and errs[2] <= GRAD_TOL, errs
+
+
 # --- float32 (the subprocess's results) -------------------------------------
 
 

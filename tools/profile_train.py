@@ -1,7 +1,11 @@
 """Profile a tinyllama-1.1b training step by kernel, and time the attention
 backward alone, for several checkouts of this repo in turns, on one GPU.
 
-    python3 tools/profile_train.py DIR [DIR ...] [--steps N]
+    python3 tools/profile_train.py DIR [DIR ...] [--steps N] [--arch A]
+
+`--arch rwkv6-1.6b` (or `zamba2-1.2b`, at full width and depth) profiles
+that arch's step with the same recipe instead, without the attention
+backward's shapes.
 
 Each DIR is the root of a checkout: `.` for this one, or an earlier
 commit unpacked under a git-ignored directory
@@ -21,9 +25,10 @@ DIR's own build directory, and
    on the synthetic stream for N steps (no checkpoints), then traces one
    more step with `torch.profiler`: device time by kernel and by group
    (attention backward and forward, GEMMs, elementwise and reductions,
-   the rest), the device's busy share of the step, and s/step (median
-   of the steps after the first), tokens/s and the model-FLOPs share of
-   989 TFLOP/s as `chip_smoke.py` counts them.
+   the rest), the device's busy share of the step, the kernels a step,
+   the host's busiest operators (self CPU ms), and s/step (median of the
+   steps after the first), tokens/s and the model-FLOPs share of 989
+   TFLOP/s as `chip_smoke.py` counts them.
 
 The turns run in the order given and then reversed (A B, B A). Each
 prints one JSON line per item; the card's nvidia-smi line comes first.
@@ -49,6 +54,7 @@ BWD_KERNELS = ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "prep_kernel",
                "delta_kernel", "dkdv_f32_kernel", "dq_f32_kernel")
 FWD_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_mma_kernel",
                "flash_attention_kernel")
+WKV_KERNELS = ("wkv_intra_kernel", "wkv_intra_bwd_kernel")
 GEMM = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 ELEMENTWISE = ("elementwise", "vectorized", "reduce", "unrolled",
                "foreach", "multi_tensor")
@@ -69,6 +75,8 @@ def group(name: str) -> str:
         return "attention_backward"
     if any(k in name for k in FWD_KERNELS):
         return "attention_forward"
+    if any(k in name for k in WKV_KERNELS):
+        return "wkv"
     if any(k in low for k in GEMM):
         return "gemm"
     if any(k in low for k in ELEMENTWISE):
@@ -102,7 +110,7 @@ def backward(cs, dev):
         del lib_out, leaves
 
 
-def train_step(cs, dev, steps: int):
+def train_step(cs, dev, steps: int, arch: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,7 +118,7 @@ def train_step(cs, dev, steps: int):
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.launch.steps import TrainCtx
     from repro_torch.launch.train import make_trainer
-    spec, cfg = cs.TRAIN, get_arch(cs.TRAIN["arch"])
+    spec, cfg = cs.TRAIN, get_arch(arch)
     px = TrainCtx(num_microbatches=spec["microbatches"],
                   loss_chunk=spec["loss_chunk"])
     tr = make_trainer(cfg, seq=spec["seq"], batch=spec["batch"],
@@ -156,8 +164,12 @@ def train_step(cs, dev, steps: int):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     s_step = statistics.median(secs[1:])
     tokens = spec["batch"] * spec["seq"]
-    n_mm = cfg.param_count() - cfg.padded_vocab * cfg.d_model
-    flops_tok = 6 * n_mm + 6 * cfg.n_layers * spec["seq"] * cfg.d_model
+    if cfg.rwkv is not None or cfg.ssm is not None:
+        flops_tok = cs._recurrent_flops_per_token(cfg, state[0], spec["seq"])
+    else:
+        n_mm = cfg.param_count() - cfg.padded_vocab * cfg.d_model
+        flops_tok = 6 * n_mm + 6 * cfg.n_layers * spec["seq"] * cfg.d_model
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     cs.emit(item="train_step", arch=cfg.name, steps=steps,
             s_per_step=s_step, step_seconds=secs,
             tokens_per_s=tokens / s_step,
@@ -166,11 +178,14 @@ def train_step(cs, dev, steps: int):
             device_busy_ms=busy / 1e3, busy_share=busy / 1e6 / wall,
             group_ms={g: us / 1e3 for g, us in sorted(groups.items())},
             group_share={g: us / total for g, us in sorted(groups.items())},
+            device_kernels=len(spans),
+            host_top=[{"op": e.key[:80], "self_cpu_ms": e.self_cpu_time_total
+                       / 1e3, "calls": e.count} for e in host[:12]],
             top=[{"kernel": short(n), "ms": us / 1e3, "calls": c,
                   "share": us / total} for n, (us, c) in top])
 
 
-def turn(tree: Path, steps: int):
+def turn(tree: Path, steps: int, arch: str):
     """One tree's measurements (runs in its own process)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs  # puts this checkout's src/ first: undo it
@@ -183,9 +198,10 @@ def turn(tree: Path, steps: int):
     kbuild.build_all()
     dev = torch.device("cuda")
     cs.emit(tree=str(tree), item="turn")
-    backward(cs, dev)
-    torch.cuda.empty_cache()
-    train_step(cs, dev, steps)
+    if arch == cs.TRAIN["arch"]:
+        backward(cs, dev)
+        torch.cuda.empty_cache()
+    train_step(cs, dev, steps, arch)
 
 
 def main():
@@ -194,11 +210,14 @@ def main():
                    help="roots of checkouts, each with src/repro_torch")
     p.add_argument("--steps", type=int, default=4,
                    help="untraced steps before the traced one")
+    p.add_argument("--arch", default="tinyllama-1.1b",
+                   help="the arch whose step is profiled (full width and "
+                        "depth)")
     p.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     trees = [t.resolve() for t in a.trees]
     if a.turn:
-        turn(trees[0], a.steps)
+        turn(trees[0], a.steps, a.arch)
         return
     sys.path.insert(0, str(ROOT))
     import torch
@@ -210,7 +229,8 @@ def main():
            if k != "REPRO_TORCH_BUILD_DIR"}
     for tree in trees + trees[::-1]:
         subprocess.run([sys.executable, __file__, "--turn", str(tree),
-                        "--steps", str(a.steps)], check=True, env=env)
+                        "--steps", str(a.steps), "--arch", a.arch],
+                       check=True, env=env)
 
 
 if __name__ == "__main__":
