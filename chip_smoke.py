@@ -151,11 +151,14 @@ and prints no result):
               attention backward also at zamba2's (2, 32/32, 4,096,
               128), rwkv6-1.6b's WKV intra-chunk forward at its training
               microbatch (2, 32, 4,096, 64; 32 chunks) and serve prefill
-              (16, 32, 512, 64) and its backward at the training shape,
-              against the plain versions (1e-5 of the largest |A|, 1e-4
-              of each gradient's largest value; one kernel a call, two
-              calls bit-equal; the SFUs' exponential time beside the
-              bound);
+              (16, 32, 512, 64) and its backward at both shapes, and at
+              the training shape with steep decays and with a cliff of
+              0..60 a token, against the plain versions (1e-5 of the
+              largest |A|, 1e-4 of each gradient's largest value; one
+              kernel a call, two calls bit-equal; beside the bound the
+              exponentials the sub-chunk design evaluates and their
+              SFU time, and those of a direct exponent a pair; in a
+              fresh process of this script, `--wkv-child`);
               tinyllama-1.1b at full width and depth through
               `launch.train`'s Trainer (8 x 4,096 tokens a step in 4
               microbatches, AdamW, remat, chunked loss, 6 steps, an
@@ -265,9 +268,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
 #: H100 SXM exponentials a second on the SFUs: 132 SMs x 16 a clock x
-#: the 1.98 GHz boost clock (the WKV kernels' real limit, printed beside
-#: their bound)
+#: the 1.98 GHz boost clock (the WKV kernels' exponentials' floor,
+#: printed beside their bound)
 PEAK_EXP_S = 132 * 16 * 1.98e9
+#: rows of the WKV kernels' sub-chunks (`kernels/wkv/csrc/wkv.cuh`)
+WKV_SUB = 16
 #: the WKV forward against its plain version, as a share of the largest
 #: |A|; the backward, of each gradient's largest |value|
 #: (tests/test_torch_wkv.py's FWD_TOL and BWD_TOL)
@@ -1670,31 +1675,53 @@ def check_moe_gate_bwd(T, E, k, dtype, dev, ties=False):
                 **bound(fwd_bytes, fwd_ops)}}
 
 
-def wkv_inputs(B, H, S, N, chunk, seed, dev, steep=False):
+#: log-decay laws of `wkv_inputs`: a token's uniform (low, high) range
+WKV_DECAYS = {"steep": (2.9, 3.1), "cliff": (0.0, 60.0)}
+
+
+def wkv_inputs(B, H, S, N, chunk, seed, dev, decay="trained"):
     """r, k, l_prev and l (B, H, S, N) float32 as rwkv6's time mix gives
     them: log-decays -exp(w) with w ~ N(-3, 1) (the trained range
-    straddles the init's -6 and 0), summed inside each chunk. `steep`:
-    log-decays uniform in -3.1..-2.9 a token, so l falls to about -380
-    in a chunk of 128, far past the -88 where a factored exp(-l)
-    overflows float32."""
+    straddles the init's -6 and 0), summed inside each chunk. `decay`
+    "steep": log-decays uniform in -3.1..-2.9 a token, so l falls to
+    about -380 in a chunk of 128, far past the -88 where a factored
+    exp(-l) overflows float32; "cliff": uniform in -60..0, l to about
+    -3,800 (the sub-chunk factors underflow to 0 where the true terms
+    do)."""
     r = _randn((B, H, S, N), seed, dev)
     k = _randn((B, H, S, N), seed + 1, dev)
     shape = (B, H, S // chunk, chunk, N)
-    if steep:
+    if decay in WKV_DECAYS:
+        lo, hi = WKV_DECAYS[decay]
         g = torch.Generator(device=dev).manual_seed(seed + 2)
-        lw = -2.9 - 0.2 * torch.rand(shape, generator=g, device=dev)
+        lw = -lo - (hi - lo) * torch.rand(shape, generator=g, device=dev)
     else:
         lw = -torch.exp(_randn(shape, seed + 2, dev) - 3)
     l = torch.cumsum(lw, 3)
     return [t.reshape(B, H, S, N).contiguous() for t in (r, k, l - lw, l)]
 
 
+def wkv_exponentials(chunk, N):
+    """The exponentials the WKV kernels evaluate for one chunk of
+    `chunk` rows at head size N: each diagonal sub-chunk's pairs below
+    its diagonal, one column factor a row of each sub-chunk that a later
+    one reads, and one row factor a row of each sub-chunk and column
+    sub-chunk before it (97,280 at c 128, N 64)."""
+    rows = [min(WKV_SUB, chunk - s) for s in range(0, chunk, WKV_SUB)]
+    return N * (sum(m * (m - 1) // 2 for m in rows)
+                + WKV_SUB * (len(rows) - 1)
+                + sum(T * m for T, m in enumerate(rows)))
+
+
 def _wkv_timings(what, call, plain, B, H, S, N, chunk, nbytes, per_pair):
     """The times of a WKV kernel's call and of its plain version, its
-    bound (`per_pair` operations a (t, i, n) triple below the diagonal)
-    and the SFUs' time for its exponentials (one a triple); raises
-    unless a call runs one kernel."""
-    pairs = B * H * (S // chunk) * chunk * (chunk - 1) // 2 * N
+    bound (`per_pair` operations a (t, i, n) triple below the diagonal:
+    the function's work, whatever the design), the exponentials the
+    sub-chunk design evaluates and their SFU time, beside those of a
+    direct exponent a triple; raises unless a call runs one kernel."""
+    chunks = B * H * (S // chunk)
+    pairs = chunks * chunk * (chunk - 1) // 2 * N
+    exps = chunks * wkv_exponentials(chunk, N)
     dev_ms, per_call, names = device_profile(call, calls=10, expect=1)
     if per_call != 1:
         raise AssertionError(f"{what}: a call ran {names}, not one kernel")
@@ -1702,29 +1729,33 @@ def _wkv_timings(what, call, plain, B, H, S, N, chunk, nbytes, per_pair):
             "ms": time_ms(call), "kernel_device_ms": dev_ms,
             "device_kernels": names,
             "plain_ms": time_ms(plain, reps=3, batch=1, warmup=1),
-            **bound(nbytes, per_pair * pairs), "exponentials": pairs,
-            "sfu_exp_ms": 1e3 * pairs / PEAK_EXP_S, "library_ms": None}
+            **bound(nbytes, per_pair * pairs), "exponentials": exps,
+            "exponentials_a_chunk": wkv_exponentials(chunk, N),
+            "sfu_exp_ms": 1e3 * exps / PEAK_EXP_S,
+            "exponentials_direct": pairs,
+            "sfu_exp_direct_ms": 1e3 * pairs / PEAK_EXP_S,
+            "library_ms": None}
 
 
-def check_wkv_intra(B, H, S, N, chunk, dev, steep=False):
+def check_wkv_intra(B, H, S, N, chunk, dev, decay="trained"):
     """The WKV intra-chunk forward against its plain version (within
     WKV_FWD_TOL of the largest |A|), two calls bit-equal, one kernel a
-    call (`steep`: see `wkv_inputs`). No single PyTorch call computes
+    call (`decay`: see `wkv_inputs`). No single PyTorch call computes
     A."""
     from repro_torch.kernels.wkv import ops, ref
-    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 31, dev, steep)
+    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 31, dev, decay)
     got = ops.wkv_intra(r, k, lp, l, chunk)
     want = ref.wkv_intra_plain(r, k, lp, l, chunk)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
-    what = f"wkv_intra at {(B, H, S, N)}, chunk {chunk}, steep {steep}"
+    what = f"wkv_intra at {(B, H, S, N)}, chunk {chunk}, decay {decay}"
     if rel > WKV_FWD_TOL or not torch.equal(
             got, ops.wkv_intra(r, k, lp, l, chunk)):
         raise AssertionError(f"{what}: error {rel} of the largest |A|, "
                              f"or two calls differ")
     del got, want
-    return {"steep": steep, "max_abs_err": err, "err_of_largest": rel,
+    return {"decay": decay, "max_abs_err": err, "err_of_largest": rel,
             **_wkv_timings(
                 what, lambda: ops.wkv_intra(r, k, lp, l, chunk),
                 lambda: ref.wkv_intra_plain(r, k, lp, l, chunk),
@@ -1734,12 +1765,12 @@ def check_wkv_intra(B, H, S, N, chunk, dev, steep=False):
                 5)}  # sub, exp, r k, fused add (2)
 
 
-def check_wkv_intra_bwd(B, H, S, N, chunk, dev, steep=False):
+def check_wkv_intra_bwd(B, H, S, N, chunk, dev, decay="trained"):
     """The WKV backward kernel against the plain backward (each gradient
     within WKV_BWD_TOL of its largest |value|), two calls bit-equal
-    (`steep`: see `wkv_inputs`). No single PyTorch call computes it."""
+    (`decay`: see `wkv_inputs`). No single PyTorch call computes it."""
     from repro_torch.kernels.wkv import ops, ref
-    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 41, dev, steep)
+    r, k, lp, l = wkv_inputs(B, H, S, N, chunk, 41, dev, decay)
     dA = _randn((B, H, S // chunk, chunk, chunk), 45, dev)
     got = ops.wkv_intra_bwd(r, k, lp, l, dA, chunk)
     want = ref.wkv_intra_bwd_plain(r, k, lp, l, dA, chunk)
@@ -1747,7 +1778,7 @@ def check_wkv_intra_bwd(B, H, S, N, chunk, dev, steep=False):
     errs = [float((g - w).abs().max() / w.abs().max())
             for g, w in zip(got, want)]
     what = (f"wkv_intra_bwd at {(B, H, S, N)}, chunk {chunk}, "
-            f"steep {steep}")
+            f"decay {decay}")
     again = ops.wkv_intra_bwd(r, k, lp, l, dA, chunk)
     if max(errs) > WKV_BWD_TOL or not all(
             torch.equal(a, b) for a, b in zip(got, again)):
@@ -1755,7 +1786,7 @@ def check_wkv_intra_bwd(B, H, S, N, chunk, dev, steep=False):
                              f"{errs}, or two calls differ")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     del got, want, again
-    return {"steep": steep, "max_abs_err": err, "errs_dr_dk_dlp_dl": errs,
+    return {"decay": decay, "max_abs_err": err, "errs_dr_dk_dlp_dl": errs,
             **_wkv_timings(
                 what, lambda: ops.wkv_intra_bwd(r, k, lp, l, dA, chunk),
                 lambda: ref.wkv_intra_bwd_plain(r, k, lp, l, dA, chunk),
@@ -1766,13 +1797,46 @@ def check_wkv_intra_bwd(B, H, S, N, chunk, dev, steep=False):
                 7)}  # sub, exp, dA e, two fused adds (2 each)
 
 
+#: (B, H, S, N, chunk) and decay of the WKV pair's checks: rwkv6-1.6b's
+#: training microbatch (the kernels line's shape), its serve prefill,
+#: and the training microbatch with steep decays and with a cliff
+WKV_CHECKS = (((2, 32, 4096, 64, 128), "trained"),
+              ((16, 32, 512, 64, 128), "trained"),
+              ((2, 32, 4096, 64, 128), "steep"),
+              ((2, 32, 4096, 64, 128), "cliff"))
+
+
+def wkv_child(dev):
+    """Body of `--wkv-child`: the WKV pair's checks at WKV_CHECKS, one
+    JSON line."""
+    print(json.dumps({
+        "wkv_intra": [check_wkv_intra(*shape, dev, decay)
+                      for shape, decay in WKV_CHECKS],
+        "wkv_intra_bwd": [check_wkv_intra_bwd(*shape, dev, decay)
+                          for shape, decay in WKV_CHECKS]}), flush=True)
+
+
+def wkv_checks() -> dict:
+    """{"wkv_intra": [...], "wkv_intra_bwd": [...]}: the WKV pair's
+    checks, in a fresh process of this script (`--wkv-child`). Late in
+    the script torch.profiler twice recorded none of the backward's
+    launches in five traces in a row, which the one-kernel-a-call hold
+    reads; in a fresh process none of 60 traces lost one."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--wkv-child"], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"wkv child failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def check_train_kernels(dev):
     """The training path's kernels at the shapes its runs give them:
     tinyllama's and qwen2-7b's attention backward, zamba2's (32 query
     and 32 KV heads at D 128, the branch without the group sum), the
-    gate's, and rwkv6-1.6b's WKV pair (the forward at the training
-    microbatch and at the serve prefill; both at the training microbatch
-    with steep decays too)."""
+    gate's, and rwkv6-1.6b's WKV pair (both at the training microbatch
+    and at the serve prefill, and at the training microbatch with steep
+    decays and with a cliff; in a child process, `wkv_checks`)."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "flash_attention_bwd": [
@@ -1780,12 +1844,7 @@ def check_train_kernels(dev):
             check_flash_attention_bwd(1, 28, 4, 4096, 128, bf, dev),
             check_flash_attention_bwd(1, 4, 2, 1024, 16, f32, dev),
             check_flash_attention_bwd(2, 32, 32, 4096, 128, bf, dev)],
-        "wkv_intra": [check_wkv_intra(2, 32, 4096, 64, 128, dev),
-                      check_wkv_intra(16, 32, 512, 64, 128, dev),
-                      check_wkv_intra(2, 32, 4096, 64, 128, dev, True)],
-        "wkv_intra_bwd": [
-            check_wkv_intra_bwd(2, 32, 4096, 64, 128, dev),
-            check_wkv_intra_bwd(2, 32, 4096, 64, 128, dev, True)],
+        **wkv_checks(),
         "moe_gate_bwd": [check_moe_gate_bwd(8192, 128, 8, f32, dev),
                          check_moe_gate_bwd(8192, 128, 8, f32, dev,
                                             ties=True)],
@@ -3991,6 +4050,8 @@ def main():
                    help=argparse.SUPPRESS)
     p.add_argument("--recurrent-f32-child", action="store_true",
                    help=argparse.SUPPRESS)
+    p.add_argument("--wkv-child", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
@@ -4005,6 +4066,9 @@ def main():
         return
     if a.recurrent_f32_child:
         recurrent_f32_child(torch.device("cuda"))
+        return
+    if a.wkv_child:
+        wkv_child(torch.device("cuda"))
         return
     dev = torch.device("cuda")
     smi = card()

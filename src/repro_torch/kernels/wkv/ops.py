@@ -33,7 +33,7 @@ from repro_torch.kernels.wkv import ref
 
 #: head sizes N the kernels take (the smoke config's and rwkv6-1.6b's)
 N_VALUES = (16, 64)
-#: the largest chunk: a chunk's 4 x 4 tiles are one block's threads
+#: the largest chunk: eight sub-chunks of 16 rows (`csrc/wkv.cuh`)
 MAX_CHUNK = 128
 
 _P = ctypes.c_void_p
@@ -80,8 +80,8 @@ def _forward(r, k, l_prev, l, chunk: int):
 def wkv_intra_bwd(r, k, l_prev, l, dA, chunk: int):
     """(dr, dk, dl_prev, dl), each (B, H, S, N) float32, for the gradient
     dA (B, H, S / chunk, chunk, chunk) float32 of `wkv_intra(r, k,
-    l_prev, l, chunk)`: one recompute of the exponentials over the lower
-    triangle gives dr and dk, and dl_prev = r dr, dl = -k dk."""
+    l_prev, l, chunk)`: one pass over the lower triangle's sub-blocks
+    gives dr and dk, and dl_prev = r dr, dl = -k dk."""
     B, H, S, N = _check(r, k, l_prev, l, chunk)
     check("dA", dA, (torch.float32,), (B, H, S // chunk, chunk, chunk),
           r.device)

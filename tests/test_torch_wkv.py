@@ -8,7 +8,11 @@ dl = -k dk) against autograd through the plain forward in float64
 (within F64_TOL of each gradient's largest |value|), at a chunk equal to
 a short sequence, at N 16 and 64, and at a chunk of 64 whose log-decays
 near -3 a token take l to about -190, where exp(-l) overflows float32;
-the wrapper's routing, refusals and launch counts; the time mix calling
+a float32 model of the kernels' sub-chunk factorisation (`_factored`),
+forward and gradients, against the plain versions in float64 on the same
+float32 inputs (FWD_TOL, BWD_TOL), ragged chunks, a chunk below a
+sub-chunk and a cliff of 0..60 a token included; the wrapper's routing,
+refusals and launch counts; the time mix calling
 the wrapper once a layer (forward, remat's recompute, backward); and, in
 a REPRO_FORCE_F32=1 subprocess of this file, rwkv6's loss gradients
 through `WkvIntra` against `jax.grad` of the reference's loss (the
@@ -117,6 +121,81 @@ def test_plain_backward_equals_autograd_f64(case):
         g32 = ref.wkv_intra_bwd_plain(*f32, dA.float(), c)
         assert all(bool(torch.isfinite(t).all()) for t in (A32, *g32))
         assert _rel(A32, A.detach()) <= FWD_TOL
+
+
+#: rows of the kernels' sub-chunks (`csrc/wkv.cuh`)
+SUB = 16
+
+
+def _factored(r, k, lp, l, c, dA):
+    """A float32 model of the kernels' algebra: sub-chunks of SUB rows;
+    for a row sub-chunk T after a column sub-chunk I the exponent split at
+    L_I = l[last row of I] into exp(l_prev - L_I) (rows) and
+    exp(L_I - l) (columns), each <= 0 in its exponent, and the products
+    over n (forward) or over t and i (gradients) taken without an
+    exponential inside; the diagonal sub-blocks direct, i < t only.
+    Returns (A, dr, dk, dl_prev, dl)."""
+    B, H, S, N = r.shape
+    shape = (B, H, S // c, c, N)
+    r, k, lp, l = (t.reshape(shape) for t in (r, k, lp, l))
+    A = torch.zeros((*shape[:3], c, c), dtype=r.dtype)
+    dr, dk = torch.zeros_like(r), torch.zeros_like(k)
+    subs = [(s, min(s + SUB, c)) for s in range(0, c, SUB)]
+    for T, (t0, t1) in enumerate(subs):
+        rt, pt = r[..., t0:t1, :], lp[..., t0:t1, :]
+        kt, lt = k[..., t0:t1, :], l[..., t0:t1, :]
+        tri = torch.ones((t1 - t0,) * 2, dtype=torch.bool).tril(-1)
+        e = torch.exp(torch.where(tri[:, :, None], pt[..., :, None, :]
+                                  - lt[..., None, :, :], -torch.inf))
+        A[..., t0:t1, t0:t1] = (rt[..., :, None, :] * kt[..., None, :, :]
+                                * e).sum(-1)
+        m = dA[..., t0:t1, t0:t1, None] * e
+        dr[..., t0:t1, :] += (m * kt[..., None, :, :]).sum(-2)
+        dk[..., t0:t1, :] += (m * rt[..., :, None, :]).sum(-3)
+        for i0, i1 in subs[:T]:
+            ref_l = l[..., i1 - 1:i1, :]
+            E = torch.exp(pt - ref_l)
+            f = torch.exp(ref_l - l[..., i0:i1, :])
+            ki = k[..., i0:i1, :] * f
+            A[..., t0:t1, i0:i1] = (rt * E) @ ki.transpose(-1, -2)
+            d = dA[..., t0:t1, i0:i1]
+            dr[..., t0:t1, :] += E * (d @ ki)
+            dk[..., i0:i1, :] += f * (d.transpose(-1, -2) @ (rt * E))
+    flat = [t.reshape(B, H, S, N) for t in (r, k, dr, dk)]
+    return A, flat[2], flat[3], flat[0] * flat[2], -flat[1] * flat[3]
+
+
+#: CASES, then ragged chunks, a chunk below SUB, and a cliff of 0..60 a
+#: token (l to about -3,800 in a chunk of 128)
+ALGEBRA_CASES = {**CASES,
+                 "ragged_37": (1, 3, 74, 64, 37, (0.0, 1.0)),
+                 "ragged_13_n16": (2, 2, 26, 16, 13, (0.0, 1.0)),
+                 "chunk_7": (1, 2, 21, 64, 7, (0.0, 1.0)),
+                 "cliff_128": (1, 2, 256, 64, 128, (0.0, 60.0))}
+
+
+@pytest.mark.parametrize("case", sorted(ALGEBRA_CASES))
+def test_sub_chunk_factors_equal_plain_f64(case):
+    """The kernels' sub-chunk factorisation in float32 against the plain
+    versions in float64: A within FWD_TOL of the largest |A|, each
+    gradient within BWD_TOL of its largest |value|, everything finite."""
+    B, H, S, N, c, decay = ALGEBRA_CASES[case]
+    x32 = _inputs(B, H, S, N, c, 8, decay, torch.float32)
+    dA = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(B, H, S // c, c, c))).float()
+    got = _factored(*x32, c, dA)
+    # the same float32 inputs, in float64 (at the cliff one rounding of l
+    # to float32 moves an exponent by ~2e-4)
+    x, dA = [t.double() for t in x32], dA.double()
+    want = (ref.wkv_intra_plain(*x, c),
+            *ref.wkv_intra_bwd_plain(*x, dA, c))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _rel(got[0], want[0]) <= FWD_TOL
+    errs = [_rel(g, w) for g, w in zip(got[1:], want[1:])]
+    assert max(errs) <= BWD_TOL, errs
+    if case.startswith("cliff"):
+        # the factors underflow where the plain exponentials do
+        assert float(x[3].min()) < -3000
 
 
 def test_wrapper_runs_the_plain_versions_on_the_cpu():
@@ -267,15 +346,20 @@ def cuda():
 
 
 #: (B, H, S, N, chunk, decay): the smoke's, rwkv6-1.6b's serve and
-#: train chunks, ragged chunks (c % 4 and c % 8 != 0), a chunk of one,
-#: the steep decay
+#: train chunks, ragged chunks (c % 4 and c % 8 != 0; 100: a short last
+#: sub-chunk), chunks of one and of 7 (below a sub-chunk), the steep
+#: decay, the cliff of 0..60 a token
 CARD_CASES = {
     "smoke": (2, 4, 64, 16, 16, (0.0, 1.0)),
     "serve_chunk": (2, 4, 512, 64, 128, (0.0, 0.2)),
     "ragged_37": (1, 3, 74, 64, 37, (0.0, 1.0)),
     "ragged_13_n16": (2, 2, 26, 16, 13, (0.0, 1.0)),
+    "ragged_100": (1, 2, 200, 64, 100, (0.0, 1.0)),
     "chunk_1": (1, 2, 8, 16, 1, (0.0, 1.0)),
+    "chunk_7": (1, 2, 21, 64, 7, (0.0, 1.0)),
     "steep_64": (1, 2, 128, 64, 64, (2.9, 3.1)),
+    "cliff_128": (1, 2, 256, 64, 128, (0.0, 60.0)),
+    "cliff_37_n16": (1, 2, 74, 16, 37, (0.0, 60.0)),
 }
 
 

@@ -1,7 +1,8 @@
 """Time the kernels of several checkouts of this repo in turns, on one
 GPU: the two proximity kernels, the MoE gate (the serve call, the
 training call with the probability mean and the backward), the cell
-sums, the capacity assignment and the attention forward.
+sums, the capacity assignment, the attention forward and the chunked
+WKV pair.
 
     python3 tools/compare_kernels.py DIR [DIR ...] [--only FAMILY ...]
 
@@ -14,9 +15,12 @@ DIR's own build directory, and calls its wrappers
 `moe_gate.ops.moe_gate`, `moe_gate.ops.moe_gate_bwd`,
 `cell_sums.ops.cell_sums`,
 `capacity_assign.ops.capacity_assign`,
-`flash_attention.ops.flash_attention`: every build keeps their
-signatures, whatever its C interface) at the shapes `chip_smoke.py`
-checks first (every shape of the last two), each result held to DIR's
+`flash_attention.ops.flash_attention`, `wkv.ops.wkv_intra` and
+`wkv.ops.wkv_intra_bwd`: every build keeps their signatures, whatever
+its C interface) at the shapes `chip_smoke.py` checks first (every shape
+of the last three; the WKV pair through `chip_smoke.check_wkv_intra` /
+`check_wkv_intra_bwd`, which hold it to DIR's plain versions, two calls
+bit-equal and one kernel a call), each result held to DIR's
 plain version (proximity counts, cell-sum bits and assignment maps
 exactly; the gate's ids and counts exactly, its probabilities, mean
 and float32 d logits within `chip_smoke.GATE_TOL`, bfloat16 d logits
@@ -209,8 +213,17 @@ def attention(tree: Path, cs, dev):
                 kernel_device_ms=cs.device_ms(call, "flash_attention"))
 
 
+def wkv(tree: Path, cs, dev):
+    for shape, decay in cs.WKV_CHECKS:
+        for kernel, check in (("wkv_intra", cs.check_wkv_intra),
+                              ("wkv_intra_bwd", cs.check_wkv_intra_bwd)):
+            cs.emit(tree=str(tree), kernel=kernel,
+                    **check(*shape, dev, decay))
+
+
 FAMILIES = {"proximity": proximity, "gate": gate, "cell_sums": cell_sums,
-            "capacity_assign": capacity_assign, "attention": attention}
+            "capacity_assign": capacity_assign, "attention": attention,
+            "wkv": wkv}
 
 
 def turn(tree: Path, only):
