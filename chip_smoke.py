@@ -139,9 +139,10 @@ and prints no result):
               MLA decode in torch ops (0 flash_decode launches), the
               gate once a step (65 launches); every layer, dense stack
               first, against the plain versions
-  9. serve_cpu the smoke configs of qwen3-moe-30b-a3b, rwkv6-1.6b and
-              zamba2-1.2b on the card against the port on the CPU,
-              teacher-forced (logits within the bf16 tolerance)
+  9. serve_cpu the smoke configs of qwen3-moe-30b-a3b, rwkv6-1.6b,
+              zamba2-1.2b, seamless-m4t-medium and internvl2-2b on the
+              card against the port on the CPU, teacher-forced (logits
+              within the bf16 tolerance)
  10. train    the training path: the flash-attention backward (with the
               forward's row log-sum-exp) at tinyllama-1.1b's and
               qwen2-7b's shapes and in float32, and the gate's backward
@@ -207,6 +208,30 @@ and prints no result):
               every master weight moved; rwkv6 restarted from a host
               copy of its state after step 3 ends bit for bit (every
               leaf's sha256)
+ 14. encdec_vision_serve seamless-m4t-medium (12 encoder + 12 decoder
+              layers, d 1,024, 16 heads of 64, vocab 256,256; 978.9 M
+              parameters) and internvl2-2b (24 layers, d 2,048, 16/8
+              heads of 128, 256 vision tokens; 1.89 B) at full width and
+              depth, random weights drawn on the card, serving 16 x 512
+              (seamless: source frames; internvl2: prompt tokens, the
+              first 256 of them vision embeddings) and 64 greedy steps:
+              launches set to 0 just before and read just after
+              (seamless 12 non-causal attention a prefill and 24 decode
+              a step, 12 self over the 64-row target cache and 12 cross
+              over the read-only 512-row encoder cache; internvl2 24 /
+              24), prefill s, decode ms a step, peak memory, finite
+              logits; every layer of the prefill and of every decode
+              step, teacher-forced on the kernel run, through the
+              kernels against the plain versions (median row within
+              SERVE_TYP, every row within SERVE_MAX, at most FLIP_MAX
+              beyond LAYER_TOL: the full-width models attend almost by
+              argmax, so a near-tie moves a row) and, on the prefill
+              and the first 8 steps, no further from float32 than the
+              plain versions; the logits after each step by the row
+              rule, greedy picks equal where the margin is clear. How
+              far whole prefills through the kernels, the plain
+              versions and float32 land apart is printed. The attention
+              kernels at their shapes are in phase kernels
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -227,7 +252,9 @@ the busy share) and its kernels by time. It prints no result line.
 
 does the same for the serve phase's model: one traced prefill, then 8
 untraced and 8 traced decode steps (`--profile-arch zamba2-1.2b`: of
-that arch at full width and depth instead).
+that arch at full width and depth instead; seamless-m4t-medium
+decodes from target position 0 over its encoder's cross cache,
+internvl2-2b's prompts carry its vision embeddings).
 
     python3 chip_smoke.py --gen 8 --steps 50 --dense-steps 20 \
         --scale-steps 3 --cpu-steps 20 --epi-steps 50 \
@@ -1012,39 +1039,41 @@ def check_moe_gate(T, E, k, dtype, dev, bias=False, ties=False):
             **bound(nbytes, ops_n), "library_ms": None}
 
 
-def check_flash_attention(B, H, Hkv, S, D, dtype, dev, Dv=None):
-    """The attention forward at q, k (., D) and v (., Dv; D when None)
-    against its plain version; PyTorch's fused attention as the library
-    call."""
+def check_flash_attention(B, H, Hkv, S, D, dtype, dev, Dv=None,
+                          causal=True):
+    """The attention forward at q, k (., D) and v (., Dv; D when None),
+    causal or not (the encoder's), against its plain version; PyTorch's
+    fused attention as the library call."""
     from repro_torch.kernels.flash_attention import ops, ref
     F = torch.nn.functional
     Dv = D if Dv is None else Dv
     q = _randn((B, H, S, D), 1, dev, dtype)
     k = _randn((B, Hkv, S, D), 2, dev, dtype)
     v = _randn((B, Hkv, S, Dv), 3, dev, dtype)
-    got = ops.flash_attention(q, k, v, True)
-    want = ref.flash_attention_plain(q, k, v, True)
+    got = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     over, err = _attn_err(got, want, dtype)
     if over > 0:
         raise AssertionError(f"flash_attention at {(B, H, Hkv, S, D, Dv)} "
-                             f"{dtype}: max_abs_err {err}")
+                             f"causal={causal} {dtype}: max_abs_err {err}")
     del got, want
     esize = q.element_size()
     nbytes = (B * H * S * (D + Dv) + B * Hkv * S * (D + Dv)) * esize
-    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
+    # the (query, key) pairs the mask keeps
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     # QK^T over D and PV over Dv, a multiply and an add each
     ops_n = 2 * (D + Dv) * pairs
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
-    call = lambda: ops.flash_attention(q, k, v, True)  # noqa: E731
+    call = lambda: ops.flash_attention(q, k, v, causal)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=Hkv < H)
+        q, k, v, is_causal=causal, enable_gqa=Hkv < H)
     return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
-            "causal": True, "dtype": str(dtype).split(".")[-1],
+            "causal": causal, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "ms": time_ms(call),
             "kernel_device_ms": device_ms(call, "flash_attention"),
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(
-                q, k, v, True), batch=1),
+                q, k, v, causal), batch=1),
             **bound(nbytes, ops_n, peak),
             "library_ms": time_ms(lib), "library_device_ms": device_ms(lib)}
 
@@ -1092,7 +1121,13 @@ def check_lm_kernels(dev):
     attention at Dk 192, Dv 128 (16 x 512 tokens, 128 heads) and the
     gate over 256 experts with its router bias; and zamba2-1.2b's shared
     block (phase recurrent_serve): 32 query and 32 KV heads at D 128,
-    the attention over 16 x 512 tokens, decode over a cache of 576."""
+    the attention over 16 x 512 tokens, decode over a cache of 576; and
+    phase encdec_vision_serve's: seamless-m4t-medium's encoder attention
+    (non-causal, 16/16 heads at D 64 over 16 x 512 frames), its
+    cross-attention decode over the read-only 512-row encoder cache (at
+    pos 511: every row) and its self-attention decode over the 64-row
+    target cache, internvl2-2b's attention (16/8 heads at D 128, 16 x
+    512 tokens) and decode (cache 576, pos 543)."""
     bf, f32 = torch.bfloat16, torch.float32
     return {
         "moe_gate": [check_moe_gate(8192, 128, 8, f32, dev),
@@ -1106,11 +1141,17 @@ def check_lm_kernels(dev):
             check_flash_attention(16, 32, 4, 512, 64, bf, dev),
             check_flash_attention(2, 8, 2, 384, 128, f32, dev),
             check_flash_attention(16, 128, 128, 512, 192, bf, dev, Dv=128),
-            check_flash_attention(16, 32, 32, 512, 128, bf, dev)],
+            check_flash_attention(16, 32, 32, 512, 128, bf, dev),
+            check_flash_attention(16, 16, 16, 512, 64, bf, dev,
+                                  causal=False),
+            check_flash_attention(16, 16, 8, 512, 128, bf, dev)],
         "flash_decode": [
             check_flash_decode(16, 32, 4, 576, 64, 543, bf, dev),
             check_flash_decode(4, 8, 2, 1000, 128, 777, f32, dev),
-            check_flash_decode(16, 32, 32, 576, 128, 543, bf, dev)],
+            check_flash_decode(16, 32, 32, 576, 128, 543, bf, dev),
+            check_flash_decode(16, 16, 16, 512, 64, 511, bf, dev),
+            check_flash_decode(16, 16, 16, 64, 64, 63, bf, dev),
+            check_flash_decode(16, 16, 8, 576, 128, 543, bf, dev)],
     }
 
 
@@ -1421,14 +1462,17 @@ def mla_serve_phase(gen: int, smi: str, dev):
 
 
 def serve_cpu_phase(dev, gen: int = 16):
-    """The smoke configs of phase serve's model (GAIA on) and of the
-    recurrent families on the card against the port on the CPU,
-    teacher-forced on the CPU's tokens."""
+    """The smoke configs of phase serve's model (GAIA on), of the
+    recurrent families and of the encoder-decoder and vision families on
+    the card against the port on the CPU, teacher-forced on the CPU's
+    tokens (seamless-smoke: 32 frames; internvl2-smoke: 32 prompt
+    tokens, the first 8 vision tokens; both attend at D 16)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import example_gaia_config, serve
     from repro_torch.models import lm
     B, P = 8, 32
-    for arch in (SERVE["arch"],) + RECURRENT_SERVE["archs"]:
+    for arch in ((SERVE["arch"],) + RECURRENT_SERVE["archs"]
+                 + ENCDEC_VISION_SERVE["archs"]):
         cfg = get_smoke(arch)
         gcfg = example_gaia_config(cfg) if cfg.moe is not None else None
         params = lm.init_params(torch.Generator().manual_seed(1), cfg)
@@ -1456,14 +1500,20 @@ def profile_serve(steps: int, dev, arch: str = ""):
     from torch.profiler import profile as trace
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.steps import argmax_first
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.launch.steps import argmax_first, model_fns
     from repro_torch.models import lm
     cfg = get_arch(arch or SERVE["arch"])
     B, P = SERVE["batch"], SERVE["prompt_len"]
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     extras = lm.init_extras(cfg, dev)
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev)
-    lm.prefill(params, {"tokens": prompts}, cfg, P + 3 * steps)  # warm-up
+    # the prompts (an encoder-decoder's frames; vision embeddings too)
+    # serve draws, and its prefill, decode and positions
+    inputs = serve_inputs(cfg, B, P, 0, None, None, None, dev)
+    _, prefill, decode = model_fns(cfg)
+    start = 0 if cfg.encoder_decoder else P
+    cache_len = start + 3 * steps
+    prefill(params, inputs, cfg, cache_len)  # warm-up
     torch.cuda.synchronize()
 
     def summarize(prof, n, wall_ms, what):
@@ -1491,32 +1541,30 @@ def profile_serve(steps: int, dev, arch: str = ""):
                           for nm, (t, c) in top])
 
     t0 = time.perf_counter()
-    cache, logits = lm.prefill(params, {"tokens": prompts}, cfg,
-                               P + 3 * steps)
+    cache, logits = prefill(params, inputs, cfg, cache_len)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-        cache, logits = lm.prefill(params, {"tokens": prompts}, cfg,
-                                   P + 3 * steps)
+        cache, logits = prefill(params, inputs, cfg, cache_len)
         torch.cuda.synchronize()
     summarize(prof, 1, wall, "prefill")
     tok = argmax_first(logits[:, -1])
-    pos = P
+    pos = start
     for _ in range(2):  # warm-up
-        cache, lg = lm.decode_step(params, cache, tok, pos, extras, cfg)
+        cache, lg = decode(params, cache, tok, pos, extras, cfg)
         tok, pos = argmax_first(lg), pos + 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        cache, lg = lm.decode_step(params, cache, tok, pos, extras, cfg)
+        cache, lg = decode(params, cache, tok, pos, extras, cfg)
         tok, pos = argmax_first(lg), pos + 1
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / steps
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            cache, lg = lm.decode_step(params, cache, tok, pos, extras, cfg)
+            cache, lg = decode(params, cache, tok, pos, extras, cfg)
             tok, pos = argmax_first(lg), pos + 1
         torch.cuda.synchronize()
     summarize(prof, steps, wall, "decode")
@@ -2678,6 +2726,309 @@ def recurrent_train_phase(smi: str, dev):
                                  f"from step {at} differs")
         out[arch] = row
         del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase encdec_vision_serve: the encoder-decoder and vision families at
+# full width and depth
+# ---------------------------------------------------------------------------
+
+#: phase encdec_vision_serve: serve's traffic (16 x 512: seamless's
+#: source frames, internvl2's prompt tokens, its first 256 vision tokens)
+ENCDEC_VISION_SERVE = dict(archs=("seamless-m4t-medium", "internvl2-2b"),
+                           batch=16, prompt_len=512, seed=0)
+
+
+#: phase encdec_vision_serve, layer by layer. The full-width models'
+#: attention is peaky (scores to ~350 in seamless, ~985 in internvl2:
+#: the init scales a (d, H, Dh) projection by H^-1/2), so a row whose
+#: top keys nearly tie moves when two bf16 paths round differently (one
+#: bf16 layer is up to ~22% of the layer's scale from the same layer in
+#: float32 on a few rows, median below 1%: this phase's `vs_f32`
+#: readings, PERF.md §6). Such a row is held
+#: as phase serve holds a row that routes differently: at most FLIP_MAX
+#: of the rows beyond LAYER_TOL, the median row within SERVE_TYP and
+#: every row within SERVE_MAX; and on the prefill and the first
+#: TRUTH_STEPS decode steps the kernels' rows are no further from the
+#: same layer in float32 (the plain versions, float32 compute) than
+#: TRUTH_SLACK times the plain versions' rows, median and largest
+TRUTH_STEPS = 8
+TRUTH_SLACK = 1.25
+
+
+@contextmanager
+def _f32_compute():
+    """The models compute in float32 (bf16 weights cast as they are
+    read) through the attention kernels' plain versions."""
+    from repro_torch.models import attention, blocks, encdec, layers, lm
+    with ExitStack() as stack:
+        for m in (layers, attention, blocks, encdec, lm):
+            if hasattr(m, "COMPUTE_DT"):
+                stack.enter_context(mock.patch.object(m, "COMPUTE_DT",
+                                                      torch.float32))
+        stack.enter_context(_gates(True, []))
+        yield
+
+
+class _ThreeWay:
+    """Rows of one layer's output through the kernels against the same
+    layer through the plain versions and, where computed, in float32,
+    from the same input."""
+
+    def __init__(self):
+        self.kp, self.kt, self.pt = [], [], []
+
+    @staticmethod
+    def _rows(a, b, ref):
+        a = a.reshape(-1, a.shape[-1]).float()
+        b = b.reshape(-1, b.shape[-1]).float()
+        return ((a - b).abs().amax(-1) / ref.float().abs().max()).cpu()
+
+    def add(self, k, p, t=None):
+        self.kp.append(self._rows(k, p, k))
+        if t is not None:
+            self.kt.append(self._rows(k, t, t))
+            self.pt.append(self._rows(p, t, t))
+
+    def summary(self):
+        kp = torch.cat(self.kp)
+        out = {"rows": kp.numel(), "row_err_median": float(kp.median()),
+               "row_err_max": float(kp.max()),
+               "beyond_layer_tol_share": float((kp > LAYER_TOL).float()
+                                               .mean())}
+        if self.kt:
+            kt, pt = torch.cat(self.kt), torch.cat(self.pt)
+            out["vs_f32"] = {"rows": kt.numel(),
+                             "kernels_median": float(kt.median()),
+                             "kernels_max": float(kt.max()),
+                             "plain_median": float(pt.median()),
+                             "plain_max": float(pt.max())}
+        return out
+
+    @staticmethod
+    def bad(r) -> bool:
+        t = r.get("vs_f32")
+        return (r["beyond_layer_tol_share"] > FLIP_MAX
+                or r["row_err_median"] > SERVE_TYP
+                or r["row_err_max"] > SERVE_MAX
+                or (t is not None and (
+                    t["kernels_median"] > TRUTH_SLACK * t["plain_median"]
+                    or t["kernels_max"] > TRUTH_SLACK * t["plain_max"])))
+
+
+def encdec_vision_layerwise(cfg, params, inputs, tokens, dev):
+    """seamless-m4t-medium's or internvl2-2b's layers of the same
+    prefill and decode, teacher-forced on the kernel run's tokens and
+    hidden states: every prefill layer (seamless: the encoder's,
+    non-causal; internvl2: over the vision and text positions) and every
+    layer of every decode step (seamless: self-attention decode over the
+    target cache and cross decode over the read-only encoder cache)
+    through the kernels, through their plain versions and, on the
+    prefill and the first TRUTH_STEPS steps, in float32, from the same
+    input (`_ThreeWay`), and the logits after each (SERVE_TYP /
+    SERVE_MAX; greedy picks equal where the margin is clear)."""
+    from repro_torch.launch.steps import argmax_first
+    from repro_torch.models import blocks, encdec, lm
+    from repro_torch.models.layers import (COMPUTE_DT, embed_fwd,
+                                           lm_head_fwd, rmsnorm)
+    tokens = tokens.to(dev)
+    inputs = {k: v.to(dev) for k, v in inputs.items()}
+    B, gen = tokens.shape[0], tokens.shape[1] - 1
+    agree = {"prefill": _ThreeWay(), "decode": _ThreeWay()}
+
+    def three(kind, fn, x, cache=None, truth=True, pick=lambda o: o):
+        """fn(x, cache) through the kernels (on `cache`), the plain
+        versions (on a copy) and, with `truth`, in float32; returns the
+        kernels' and the plain versions' outputs."""
+        twin = lm.tree_map(lambda t: t.clone(), cache)
+        with _gates(False, []):
+            out_k = fn(x, cache)
+        with _gates(True, []):
+            out_p = fn(x, twin)
+        out_t = None
+        if truth:
+            with _f32_compute():
+                out_t = pick(fn(x.float(), lm.tree_map(
+                    lambda t: t.float(), cache)))
+        agree[kind].add(pick(out_k), pick(out_p), out_t)
+        return out_k, out_p
+
+    picks = {"sure_rows": 0, "sure_rows_agreeing": 0, "rows": 0}
+
+    def logit_err(hk, hp, norm):
+        """Per row, the logits after the last layer through the kernels
+        against the plain versions; their greedy picks must agree where
+        the plain logits' top-2 margin exceeds twice the row's gap."""
+        lk, lp = (lm_head_fwd(params["embed"], rmsnorm(
+            norm, h, cfg.norm_eps))[:, -1].float() for h in (hk, hp))
+        gap = (lk - lp).abs().amax(-1)
+        top2 = lp.topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * gap
+        same = argmax_first(lk) == argmax_first(lp)
+        picks["rows"] += lk.shape[0]
+        picks["sure_rows"] += int(sure.sum())
+        picks["sure_rows_agreeing"] += int((sure & same).sum())
+        return gap / lk.abs().max()
+
+    if cfg.encoder_decoder:
+        x = torch.matmul(inputs["frames"].to(COMPUTE_DT),
+                         params["src_proj"].to(COMPUTE_DT))
+        for i in range(cfg.n_layers):
+            p = lm.layer(params["enc_layers"], i)
+            x, xp = three("prefill", lambda xx, c: encdec.enc_block(
+                p, xx, cfg), x)
+        enc_out, enc_plain = (rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+                              for h in (x, xp))
+        logit_errs = [logit_err(enc_out[:, -1:], enc_plain[:, -1:],
+                                params["final_norm"])]  # BOS
+        Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        cache = {"self": {k: torch.zeros(
+                    (cfg.n_layers, B, gen, Hkv, Dh), dtype=COMPUTE_DT,
+                    device=dev) for k in "kv"},
+                 "cross": encdec.cross_cache(params, enc_out, cfg)}
+        stack, start = params["dec_layers"], 0
+    else:
+        x = lm._embed_inputs(params, inputs, cfg)
+        P, kvs = x.shape[1], []
+        for i in range(cfg.n_layers):
+            p = lm.layer(params["layers"], i)
+            (x, kv, _), (xp, _, _) = three(
+                "prefill", lambda xx, c: blocks.tf_block_fwd(
+                    p, xx, cfg=cfg, return_kv=True), x,
+                pick=lambda o: o[0])
+            kvs.append(kv)
+        logit_errs = [logit_err(x[:, -1:], xp[:, -1:], params["final_norm"])]
+        cache = lm._pad_cache_to({"main": lm._stacked(kvs)}, cfg, P + gen)
+        del kvs
+        stack, start = params["layers"], P
+    for step in range(gen):
+        x = embed_fwd(params["embed"], tokens[:, step, None])
+        for i in range(cfg.n_layers):
+            p = lm.layer(stack, i)
+            if cfg.encoder_decoder:
+                c = {k: lm.layer(cache[k], i) for k in ("self", "cross")}
+                fn = lambda xx, cc: encdec.dec_block_decode(  # noqa: E731
+                    p, xx, cc["self"], cc["cross"], step, cfg)
+            else:
+                c = lm.layer(cache["main"], i)
+                fn = lambda xx, cc: blocks.tf_block_decode(  # noqa: E731
+                    p, xx, cc, start + step, cfg=cfg)[0]
+            x, xp = three("decode", fn, x, c, truth=step < TRUTH_STEPS)
+        logit_errs.append(logit_err(x, xp, params["final_norm"]))
+    res = {k: a.summary() for k, a in agree.items()}
+    le = torch.cat([e.flatten() for e in logit_errs]).cpu()
+    res["logits_row_err_median"] = float(le.median())
+    res["logits_row_err_max"] = float(le.max())
+    res["sure_picks"] = picks
+    bad = [k for k in agree if _ThreeWay.bad(res[k])]
+    if (res["logits_row_err_median"] > SERVE_TYP
+            or res["logits_row_err_max"] > SERVE_MAX):
+        bad.append("logits")
+    if picks["sure_rows_agreeing"] != picks["sure_rows"]:
+        bad.append("picks")
+    if bad:
+        raise AssertionError(f"{cfg.name}: kernels vs plain versions, layer "
+                             f"by layer, beyond the bf16 rule: {bad}: {res}")
+    return res
+
+
+def prefill_spread(cfg, params, inputs, dev) -> dict:
+    """How far apart whole bf16 prefills land at full width: the last
+    logits (B, V) of the prefill through the kernels, through the plain
+    versions and in float32 (plain versions), each pair's largest |gap|
+    over the float32 logits' scale. A random-weight model at full width
+    attends almost by argmax (scores in the hundreds), so differences of
+    rounding that every layer holds within the bf16 rule grow over the
+    layers; this is measured, not held."""
+    from repro_torch.launch.steps import model_fns
+    prefill = model_fns(cfg)[1]
+    inputs = {k: v.to(dev) for k, v in inputs.items()}
+    out = {}
+    for name, ctx in (("kernels", _gates(False, [])),
+                      ("plain", _gates(True, [])), ("f32", _f32_compute())):
+        with ctx:
+            out[name] = prefill(params, inputs, cfg, 1)[1][:, -1].float()
+    scale = float(out["f32"].abs().max())
+    return {f"{a}_vs_{b}": float((out[a] - out[b]).abs().max()) / scale
+            for a, b in (("kernels", "plain"), ("kernels", "f32"),
+                         ("plain", "f32"))}
+
+
+def encdec_vision_serve_phase(gen: int, smi: str, dev):
+    """seamless-m4t-medium (12 encoder + 12 decoder layers, d 1,024, 16
+    heads of 64, vocab 256,256) and internvl2-2b (24 layers, d 2,048,
+    16/8 heads of 128, 256 vision tokens) at full width and depth,
+    random weights drawn on the card, serving 16 x 512 (frames, or
+    prompt tokens with the vision embeddings in front) and `gen` greedy
+    steps through `launch/serve.py`: launches set to 0 just before and
+    read just after (seamless: 12 non-causal attention a prefill, 24
+    flash decode a step, 12 self and 12 cross; internvl2: 24 and 24),
+    prefill s, decode ms a step, peak memory, finite logits; how far
+    whole prefills through the kernels, the plain versions and float32
+    land apart (`prefill_spread`, printed); every layer against the
+    plain versions and float32, teacher-forced on the kernel run
+    (`encdec_vision_layerwise`)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import lm
+    B, P, seed = (ENCDEC_VISION_SERVE[k] for k in ("batch", "prompt_len",
+                                                   "seed"))
+    out = {}
+    for arch in ENCDEC_VISION_SERVE["archs"]:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        allocated = sum(t.numel() for t in tree.leaves(params))
+        kbuild.reset_launches()
+        run = serve(cfg, None, B, P, gen, seed, dev, params=params,
+                    keep_logits=True)
+        launches = kbuild.launches()
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(lg).all()) for lg in run["logits"])
+        L = cfg.n_layers
+        if cfg.encoder_decoder:
+            want = {"flash_attention": L, "flash_decode": 2 * L * gen}
+        else:
+            want = {"flash_attention": L, "flash_decode": L * gen}
+        want.update(moe_gate=0, wkv_intra=0, wkv_intra_bwd=0)
+        del run["logits"]
+        # the inputs serve drew from the seed
+        inputs = serve_inputs(cfg, B, P, seed, None, None, None, "cpu")
+        spread = prefill_spread(cfg, params, inputs, dev)
+        torch.cuda.empty_cache()
+        layers = encdec_vision_layerwise(cfg, params, inputs, run["tokens"],
+                                         dev)
+        res = {"card": smi, "arch": cfg.name, "layers": L,
+               "encoder_decoder": cfg.encoder_decoder,
+               "vision_tokens": cfg.n_vision_tokens,
+               "params_allocated": allocated,
+               "param_count": cfg.param_count(), "batch": B,
+               "prompt_len": P, "gen": gen,
+               "cache_len": gen if cfg.encoder_decoder else P + gen,
+               "launches": {k: launches[k] for k in want},
+               "max_memory_allocated": peak,
+               "prefill_s": run["prefill_s"],
+               "prefill_tokens_per_s": B * P / run["prefill_s"],
+               "decode_ms_per_step": 1e3 * run["decode_s"] / gen,
+               "decode_tokens_per_s": B * gen / run["decode_s"],
+               "logits_finite": finite, "prefill_spread": spread,
+               "vs_plain_layerwise": layers}
+        emit(phase="encdec_vision_serve", **res)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"encdec_vision_serve {arch} launched "
+                                 f"{launches}, want {want}")
+        if not finite or tuple(run["tokens"].shape) != (B, gen + 1):
+            raise AssertionError(f"encdec_vision_serve {arch}: non-finite "
+                                 f"logits or tokens of shape "
+                                 f"{tuple(run['tokens'].shape)}")
+        out[arch] = res
+        del params, run
     torch.cuda.empty_cache()
     return out
 
@@ -4032,7 +4383,8 @@ def main():
                    help="churn iterations of the sharded phase's open "
                         "world")
     p.add_argument("--gen", type=int, default=64,
-                   help="decode steps of the serve phase")
+                   help="decode steps of the serve phases (serve, "
+                        "mla_serve, recurrent_serve, encdec_vision_serve)")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
                    help="trace STEPS steps of the default config instead")
     p.add_argument("--scenario", default="", choices=(
@@ -4161,6 +4513,8 @@ def main():
                       dev)
     recurrent_train = timed("recurrent_train", recurrent_train_phase, smi,
                             dev)
+    encdec_vision = timed("encdec_vision_serve", encdec_vision_serve_phase,
+                          a.gen, smi, dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -4215,13 +4569,16 @@ def main():
                           recurrent_train["rwkv6-1.6b"]["launches"]),
     }
 
-    def recurrent_launches(stem):
-        """A kernel's launches in each recurrent phase's runs."""
+    def family_launches(stem):
+        """A kernel's launches in each recurrent phase's runs and in
+        phase encdec_vision_serve's."""
         return {f"{phase}_launches": {arch: runs[arch]["launches"].get(
                     stem, 0) for arch in spec["archs"]}
                 for phase, runs, spec in (
                     ("recurrent_serve", recurrent, RECURRENT_SERVE),
-                    ("recurrent_train", recurrent_train, TRAIN_RECURRENT))}
+                    ("recurrent_train", recurrent_train, TRAIN_RECURRENT),
+                    ("encdec_vision_serve", encdec_vision,
+                     ENCDEC_VISION_SERVE))}
 
     def measured(shape):
         """The kernels line's measured fields of a kernel's main shape."""
@@ -4243,7 +4600,7 @@ def main():
             "obs_launches": obs_launches.get(stem, 0),
             "sharded_launches": sharded_launches.get(stem, 0),
             "mla_serve_launches": mla_served["launches"].get(stem, 0),
-            **recurrent_launches(stem),
+            **family_launches(stem),
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
             **measured(main_shape),
@@ -4253,7 +4610,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[stem],
-            **measured(main_shape), **recurrent_launches(stem),
+            **measured(main_shape), **family_launches(stem),
             "shapes": train_shapes[k]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

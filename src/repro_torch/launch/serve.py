@@ -1,8 +1,11 @@
 """Batched greedy serving of an LM, with GAIA expert placement online
 for an MoE one — the loop of the reference's `examples/serve_moe.py` as
 a function. Every ported family serves: the dense and MoE transformer
-stacks, MLA, and the recurrent rwkv6 and zamba2 (whose prompt length
-must be a multiple of the chunk, or within one).
+stacks, MLA, the recurrent rwkv6 and zamba2 (whose prompt length must be
+a multiple of the chunk, or within one), internvl2 with its vision
+tokens in front of the prompt, and the encoder-decoder seamless, whose
+"prompt" is the source's frames: it encodes them, and the decoder
+starts from the BOS logits at position 0.
 
 Prefill the prompts, then decode greedily. After each decode step GAIA
 observes the step's traffic (synthesised from the generated tokens as
@@ -14,6 +17,10 @@ table (`extras["placement"]`) follows. Both belong to the MoE stack
 
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+        --smoke --device cpu
+    python -m repro_torch.launch.serve --arch internvl2-2b --smoke \
+        --device cpu
 
 Unlike the example, the permutation the weights are currently stored in
 is kept and passed as `perm_old` to `gaia_moe.migration_index`; the
@@ -31,8 +38,9 @@ import torch
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import gaia_moe as gm
 from repro_torch.core.service import resolve_device
-from repro_torch.launch.steps import argmax_first
+from repro_torch.launch.steps import argmax_first, model_fns
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.encdec import FRAME_DIM
 
 #: the expert leaves a migration permutes
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
@@ -62,8 +70,38 @@ def _traffic(tokens, G: int, E: int):
                           accumulate=True)
 
 
+def serve_inputs(cfg, batch: int, prompt_len: int, seed: int, prompts,
+                 frames, vision_embeds, dev) -> dict:
+    """The prefill's batch: an encoder-decoder's frames (B, prompt_len,
+    FRAME_DIM), else the prompts (B, prompt_len) and, with vision tokens,
+    the vision embeddings (B, n_vision_tokens, d); each drawn on the CPU
+    (frames and prompts from seed + 1, vision embeddings from seed + 2)
+    unless given. The vision tokens take the prompt's first positions,
+    so the prompt must hold them."""
+    def drawn(given, draw, s):
+        if given is None:
+            given = draw(torch.Generator().manual_seed(s))
+        return given.to(dev)
+
+    if cfg.encoder_decoder:
+        return {"frames": drawn(frames, lambda g: torch.randn(
+            (batch, prompt_len, FRAME_DIM), generator=g), seed + 1)}
+    out = {"tokens": drawn(prompts, lambda g: torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), generator=g), seed + 1)}
+    if cfg.n_vision_tokens:
+        if prompt_len < cfg.n_vision_tokens:
+            raise ValueError(f"a prompt of {prompt_len} tokens cannot hold "
+                             f"{cfg.name}'s {cfg.n_vision_tokens} vision "
+                             f"tokens")
+        out["vision_embeds"] = drawn(vision_embeds, lambda g: torch.randn(
+            (batch, cfg.n_vision_tokens, cfg.d_model), generator=g),
+            seed + 2)
+    return out
+
+
 def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
-          device=None, *, params=None, prompts=None, forced=None,
+          device=None, *, params=None, prompts=None, frames=None,
+          vision_embeds=None, forced=None,
           keep_logits: bool = False) -> dict:
     """Prefill `batch` prompts of `prompt_len` tokens and decode `gen`
     greedy steps, with GAIA expert placement (`gaia_cfg`, None for off;
@@ -72,7 +110,12 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
     Weights are drawn from `seed` on the device unless `params` is given
     (its expert leaves are then permuted in place by migrations);
     prompts from seed + 1 on the CPU unless `prompts` (B, prompt_len) is
-    given. `forced` (B, gen + 1) teacher-forces the token stream: step i
+    given, and with vision tokens `vision_embeds` (B, n_vision_tokens,
+    d) from seed + 2. An encoder-decoder takes `frames` (B, prompt_len,
+    FRAME_DIM) in place of prompts (drawn from seed + 1) and decodes at
+    target positions 0..gen-1 over a self cache of `gen` rows; the
+    others at prompt_len + step over a cache of prompt_len + gen.
+    `forced` (B, gen + 1) teacher-forces the token stream: step i
     feeds forced[:, i] and GAIA observes forced[:, i + 1].
 
     Returns {"tokens": (B, gen + 1) int32 greedy picks, "logits": the
@@ -81,7 +124,6 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
     "perm" (expert -> segment), "prefill_s", "decode_s"}; tensors on the
     CPU except the logits."""
     dev = resolve_device(device)
-    lm_mod.check_ported(cfg)
     if cfg.moe is None and gaia_cfg is not None:
         raise ValueError(f"{cfg.name} has no MoE layers to place")
     # migrations act on the MoE stack: its depth, not the model's
@@ -94,19 +136,19 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
         params = lm_mod.init_params(
             torch.Generator(device=dev).manual_seed(seed), cfg)
     extras = lm_mod.init_extras(cfg, dev)
-    if prompts is None:
-        prompts = torch.randint(
-            0, cfg.vocab_size, (batch, prompt_len),
-            generator=torch.Generator().manual_seed(seed + 1))
-    prompts = prompts.to(dev)
+    inputs = serve_inputs(cfg, batch, prompt_len, seed, prompts, frames,
+                          vision_embeds, dev)
     if forced is not None:
         forced = forced.to(device=dev, dtype=torch.int32)
-    cache_len = prompt_len + gen
+    _, prefill, decode = model_fns(cfg)
+    # the decoder's first position (an encoder-decoder's target starts
+    # at 0), and its cache rows
+    start = 0 if cfg.encoder_decoder else prompt_len
+    cache_len = start + gen
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = lm_mod.prefill(params, {"tokens": prompts}, cfg,
-                                   cache_len)
+    cache, logits = prefill(params, inputs, cfg, cache_len)
     picks = [argmax_first(logits[:, -1])]
     kept = [logits[:, -1]] if keep_logits else None
     _sync(dev)
@@ -118,8 +160,8 @@ def serve(cfg, gaia_cfg, batch: int, prompt_len: int, gen: int, seed: int,
     t0 = time.perf_counter()
     for step in range(gen):
         fed = picks[-1] if forced is None else forced[:, step]
-        cache, logits = lm_mod.decode_step(params, cache, fed,
-                                           prompt_len + step, extras, cfg)
+        cache, logits = decode(params, cache, fed, start + step, extras,
+                               cfg)
         picks.append(argmax_first(logits))
         if keep_logits:
             kept.append(logits)
@@ -160,7 +202,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=8,
+                    help="prompt tokens (at least the vision tokens); an "
+                         "encoder-decoder's source frames")
     ap.add_argument("--gen", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,

@@ -1,7 +1,7 @@
 """Step functions — the port of `repro.launch.steps` on one device:
-`build_train_step` and `build_serve_step` (no shardings or jit
-signatures: PyTorch runs eagerly, so `build_*` returns the step
-function itself).
+`model_fns` (a family's loss, prefill and decode), `build_train_step`
+and `build_serve_step` (no shardings or jit signatures: PyTorch runs
+eagerly, so `build_*` returns the step function itself).
 
 `build_train_step` wires together the model loss, microbatched gradient
 accumulation (float32 accumulators, or bf16), the optimizer chosen by
@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim.adafactor import (adafactor_apply, adafactor_init,
                                          adafactor_lean_apply,
@@ -54,6 +55,15 @@ class TrainCtx:
                              f"{sorted(GRAD_DTYPES)}")
         if self.remat not in lm_mod.REMATS:
             raise ValueError(f"remat={self.remat!r} not in {lm_mod.REMATS}")
+
+
+def model_fns(cfg):
+    """(loss_fn, prefill_fn, decode_fn) for this architecture family:
+    `models.encdec`'s for an encoder-decoder, else `models.lm`'s."""
+    if cfg.encoder_decoder:
+        return (encdec_mod.encdec_loss, encdec_mod.encdec_prefill,
+                encdec_mod.encdec_decode)
+    return lm_mod.loss_fn, lm_mod.prefill, lm_mod.decode_step
 
 
 def argmax_first(logits):
@@ -100,7 +110,6 @@ def build_train_step(cfg, shape, px: Optional[TrainCtx] = None,
     arrays (they go to the params' device). Metrics are device scalars:
     the loss and the loss function's scalar metrics averaged over the
     microbatches, then the optimizer's `grad_norm` and `lr`."""
-    lm_mod.check_ported(cfg)
     px = px or TrainCtx()
     opt = opt or AdamWConfig()
     M = px.num_microbatches
@@ -108,6 +117,7 @@ def build_train_step(cfg, shape, px: Optional[TrainCtx] = None,
         raise ValueError(f"global batch {shape.global_batch} is not a "
                          f"multiple of {M} microbatches")
     apply = OPTIMIZERS[px.optimizer][1]
+    loss_fn = model_fns(cfg)[0]
     gdt = GRAD_DTYPES[px.grad_dtype]
 
     def train_step(params, opt_state, extras, batch):
@@ -124,9 +134,9 @@ def build_train_step(cfg, shape, px: Optional[TrainCtx] = None,
         scalars = []
         for i in range(M):
             b = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics = lm_mod.loss_fn(p_req, b, extras, cfg,
-                                           loss_chunk=px.loss_chunk,
-                                           remat=px.remat)
+            loss, metrics = loss_fn(p_req, b, extras, cfg,
+                                    loss_chunk=px.loss_chunk,
+                                    remat=px.remat)
             grads = torch.autograd.grad(loss, flat)
             extras = _update_router_bias(extras, metrics)
             for a, g in zip(gacc, grads):
@@ -157,11 +167,10 @@ def build_serve_step(cfg):
     """serve_step(params, extras, cache, tokens, pos) -> (cache,
     next_tokens (B,) int32): one greedy decode step. The cache is
     updated in place."""
-    lm_mod.check_ported(cfg)
+    decode = model_fns(cfg)[2]
 
     def serve_step(params, extras, cache, tokens, pos):
-        cache, logits = lm_mod.decode_step(params, cache, tokens, pos,
-                                           extras, cfg)
+        cache, logits = decode(params, cache, tokens, pos, extras, cfg)
         return cache, argmax_first(logits)
 
     return serve_step

@@ -60,30 +60,52 @@ def init_mla(gen, d: int, n_heads: int, c):
     }
 
 
+def _heads(p, x, w, b):
+    """x (B, S, d) through p[w] (d, H, Dh) and the bias p[b] if the layer
+    has one: (B, H, S, Dh), not yet contiguous."""
+    out = torch.einsum("bsd,dhk->bhsk", x, p[w].to(COMPUTE_DT))
+    if b in p:
+        out = out + p[b].to(COMPUTE_DT)[None, :, None, :]
+    return out
+
+
+def _project_q(p, x, rope_theta, positions):
+    """x: (B, S, d) -> q (B, H, S, Dh), contiguous, with RoPE at
+    `positions` (B, S)."""
+    q = _heads(p, x, "wq", "bq")
+    if rope_theta:
+        q = apply_rope(q, positions[:, None, :], rope_theta)
+    return q.contiguous()
+
+
 def _project_qkv(p, x, rope_theta, positions):
     """x: (B, S, d) -> q (B, H, S, Dh), k, v (B, Hkv, S, Dh), contiguous,
     with RoPE at `positions` (B, S)."""
-    def proj(w, b):
-        out = torch.einsum("bsd,dhk->bhsk", x, p[w].to(COMPUTE_DT))
-        if b in p:
-            out = out + p[b].to(COMPUTE_DT)[None, :, None, :]
-        return out
-
-    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    k, v = _heads(p, x, "wk", "bk"), _heads(p, x, "wv", "bv")
     if rope_theta:
-        q = apply_rope(q, positions[:, None, :], rope_theta)
         k = apply_rope(k, positions[:, None, :], rope_theta)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return _project_q(p, x, rope_theta, positions), k.contiguous(), \
+        v.contiguous()
 
 
-def gqa_fwd(p, x, *, cfg, return_kv: bool = False):
-    """Full-sequence causal GQA attention (prefill). With `return_kv`
-    also returns the post-RoPE (k, v) laid out (B, S, Hkv, Dh) for the
-    cache."""
+def gqa_fwd(p, x, *, cfg, causal: bool = True, kv_override=None,
+            return_kv: bool = False):
+    """Full-sequence GQA attention (train / prefill), causal or not
+    (the encoder attends both ways), q rotated at 0..S-1.
+
+    kv_override: an encoder's (k, v), each (B, Hkv, S_src, Dh) and
+    contiguous, unrotated, for cross-attention: the layer's own k and v
+    projections are not computed, and S_src may differ from S.
+    return_kv: also return the post-RoPE (k, v) laid out (B, S, Hkv, Dh)
+    for the cache."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, x, cfg.rope_theta, positions)
-    out = fa_ops.flash_attention(q, k, v, True)
+    if kv_override is not None:
+        q = _project_q(p, x, cfg.rope_theta, positions)
+        k, v = kv_override
+    else:
+        q, k, v = _project_qkv(p, x, cfg.rope_theta, positions)
+    out = fa_ops.flash_attention(q, k, v, causal)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(COMPUTE_DT))
     if return_kv:
         return y, (k.transpose(1, 2), v.transpose(1, 2))
@@ -98,20 +120,28 @@ def pos_scalar(pos) -> int:
     return int(pos)
 
 
-def gqa_decode(p, x, cache, pos, *, cfg):
+def gqa_decode(p, x, cache, pos, *, cfg, cross: bool = False):
     """One-token decode. x: (B, 1, d); cache: {"k", "v"} of
     (B, Smax, Hkv, Dh). Writes the new row at `pos` into the cache IN
     PLACE (the reference returns a new cache; the port saves the copy)
     and returns (y, cache). Past the cache's end the row goes to
     Smax - 1, where the reference's `dynamic_update_slice` clamps it,
-    and the token attends to every cached row."""
+    and the token attends to every cached row.
+
+    With `cross` (an encoder-decoder's cross-attention) the cache is
+    read-only: q is rotated at `pos` and attends to the rows 0..pos (the
+    caller passes S_src - 1: every row), and the layer's k and v
+    projections are not computed."""
     B = x.shape[0]
     pos = pos_scalar(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg.rope_theta, positions)
-    row = min(pos, cache["k"].shape[1] - 1)
-    cache["k"][:, row] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, row] = v[:, :, 0].to(cache["v"].dtype)
+    if cross:
+        q = _project_q(p, x, cfg.rope_theta, positions)
+    else:
+        q, k, v = _project_qkv(p, x, cfg.rope_theta, positions)
+        row = min(pos, cache["k"].shape[1] - 1)
+        cache["k"][:, row] = k[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, row] = v[:, :, 0].to(cache["v"].dtype)
     out = fd_ops.flash_decode(q[:, :, 0].contiguous(), cache["k"],
                               cache["v"], pos)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(COMPUTE_DT))[:, None]

@@ -6,8 +6,9 @@ the parameters, `extras` (`router_bias`, `placement`) and caches of
 `repro.models.lm` (GQA's {"k", "v"} pairs, or MLA's latent arrays, a
 bare array under each stack's name; RWKV6's stacked carry {"state",
 "shift_a", "shift_f"}; zamba2's {"mamba": {"ssm", "conv"}, "attn_k",
-"attn_v"}), and the GAIA-MoE state of `repro.core.gaia_moe` (its `ptr`
-and `step` as Python ints).
+"attn_v"}) and of `repro.models.encdec` ({"self": {"k", "v"}, "cross":
+{"k", "v"}}, each (L, B, S, Hkv, Dh)), and the GAIA-MoE state of
+`repro.core.gaia_moe` (its `ptr` and `step` as Python ints).
 
 JAX hands bfloat16 out as `ml_dtypes.bfloat16` numpy arrays, which
 `torch.from_numpy` refuses. They are told by `dtype.name == "bfloat16"`

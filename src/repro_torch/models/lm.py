@@ -18,8 +18,12 @@ B, Smax, r + rope)}``; RWKV6's is the stacked recurrent carry
 d)}``, zamba2's ``{"mamba": {"ssm": (L, B, H, P, N) float32, "conv":
 (L, B, d_conv - 1, di + 2 N)}, "attn_k", "attn_v": (n_inv, B, Smax,
 Hkv, Dh)}``, one K/V slice for each invocation of the shared block
-(layers 0, shared_every, ...). Encoder-decoder and vision tokens come
-with a later slice and raise `NotImplementedError`.
+(layers 0, shared_every, ...). A config with `n_vision_tokens`
+(internvl2) has `vision_proj`: a batch's `vision_embeds` (B, n, d)
+through it replace the first n token embeddings (`_embed_inputs`). The
+encoder-decoder family (seamless) lives in `models/encdec.py`;
+`init_params` dispatches to it, `launch.steps.model_fns` picks its
+loss, prefill and decode.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs import LATER
 from repro_torch.tree import tree_map
 from repro_torch.models import blocks
 from repro_torch.models import mamba2 as m2
@@ -42,17 +45,6 @@ MOE_AUX_WEIGHT = 1e-2
 #: the reference's remat policies; "dots" (save the matmuls' outputs)
 #: has no counterpart here yet
 REMATS = ("none", "full")
-
-
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError for what this slice does not run."""
-    later = [name for name, on in (
-        ("encoder-decoder", cfg.encoder_decoder),
-        ("vision tokens", bool(cfg.n_vision_tokens)),
-    ) if on]
-    if later:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(later)} not "
-                                  f"ported yet; see {LATER}")
 
 
 def layer(stack, i: int):
@@ -102,8 +94,11 @@ def _init_stack(gen, n: int, make):
 def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
     """Random weights drawn on `gen`'s device (its own stream: the
     reference's jax.random numbers are not reproduced; tests carry
-    weights across with `models.convert`)."""
-    check_ported(cfg)
+    weights across with `models.convert`). An encoder-decoder config
+    gets `encdec.init_encdec`'s tree."""
+    if cfg.encoder_decoder:
+        from repro_torch.models.encdec import init_encdec
+        return init_encdec(gen, cfg)
     p: Dict[str, Any] = {
         "embed": init_embed(gen, cfg.padded_vocab, cfg.d_model,
                             cfg.tie_embeddings),
@@ -113,15 +108,16 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
     if cfg.rwkv is not None:
         p["layers"] = _init_stack(
             gen, cfg.n_layers, lambda g: r6.init_rwkv_block(g, d, cfg))
-        return p
-    if cfg.ssm is not None:  # zamba2 hybrid
+    elif cfg.ssm is not None:  # zamba2 hybrid
         p["layers"] = _init_stack(
             gen, cfg.n_layers, lambda g: m2.init_mamba2(g, d, cfg))
         p["shared_block"] = blocks.init_shared_block(gen, cfg)
-        return p
-    for name, n, moe in stacks(cfg):
-        p[STACK_PARAMS[name]] = _init_stack(
-            gen, n, lambda g, moe=moe: blocks.init_tf_block(g, cfg, moe))
+    else:
+        for name, n, moe in stacks(cfg):
+            p[STACK_PARAMS[name]] = _init_stack(
+                gen, n, lambda g, moe=moe: blocks.init_tf_block(g, cfg, moe))
+    if cfg.n_vision_tokens:
+        p["vision_proj"] = _init(gen, (d, d))
     if cfg.mtp_depth:
         p["mtp"] = {"proj": _init(gen, (2 * d, d)),
                     "block": blocks.init_tf_block(gen, cfg, False),
@@ -149,13 +145,24 @@ def init_extras(cfg, device) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _embed_inputs(params, batch, cfg):
+    """The token embeddings of batch["tokens"] (B, S, d); with vision
+    tokens and batch["vision_embeds"] (B, n, d), those through
+    `vision_proj` take the first n positions."""
+    x = embed_fwd(params["embed"], batch["tokens"])
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        v = torch.matmul(batch["vision_embeds"].to(COMPUTE_DT),
+                         params["vision_proj"].to(COMPUTE_DT))
+        x = torch.cat([v, x[:, cfg.n_vision_tokens:]], 1)
+    return x
+
+
 def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
                  remat: str = "full", collect_cache: bool = False):
     """Returns (h, cache_or_None, metrics). With `train` each MoE layer
     reports its aux loss (their mean is `moe_aux_loss`), and under
     `remat="full"` each block runs under `torch.utils.checkpoint`: only
     its input is kept, and the backward recomputes the rest."""
-    check_ported(cfg)
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r} not in {REMATS}")
 
@@ -306,7 +313,7 @@ def loss_fn(params, batch, extras, cfg, *, loss_chunk: int = 0,
     `loss_chunk` > 0 takes the sequence-chunked cross-entropy; `remat`
     as `backbone_fwd`. Returns (loss, metrics)."""
     tokens = batch["tokens"]
-    x = embed_fwd(params["embed"], tokens)
+    x = _embed_inputs(params, batch, cfg)
     h, _, metrics = backbone_fwd(params, x, cfg, extras, train=True,
                                  remat=remat)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -357,9 +364,10 @@ def prefill(params, batch, cfg, cache_len: int):
     """Run the full prompt, return (cache, last_logits (B, 1, V)).
 
     As the reference, prefill routes with fresh extras (zero bias,
-    identity placement). The caches are padded to `cache_len`."""
+    identity placement). The caches are padded to `cache_len`. A batch
+    may carry `vision_embeds` (`_embed_inputs`)."""
     tokens = batch["tokens"]
-    x = embed_fwd(params["embed"], tokens)
+    x = _embed_inputs(params, batch, cfg)
     h, cache, _ = backbone_fwd(params, x, cfg,
                                init_extras(cfg, tokens.device),
                                collect_cache=True)
@@ -371,9 +379,10 @@ def prefill(params, batch, cfg, cache_len: int):
 def _pad_cache_to(cache, cfg, cache_len: int):
     """Pad the prefill caches along S to cache_len: GQA's (L, B, S, Hkv,
     Dh) pairs, MLA's latent (L, B, S, r + rope) arrays, or zamba2's
-    (n_inv, B, S, Hkv, Dh) K/V stacks. RWKV6's carry has no S."""
-    check_ported(cfg)
-    if cfg.rwkv is not None:
+    (n_inv, B, S, Hkv, Dh) K/V stacks. RWKV6's carry has no S; an
+    encoder-decoder's caches are allocated at their size by its
+    prefill."""
+    if cfg.rwkv is not None or cfg.encoder_decoder:
         return cache
 
     def pad_seq(arr):
@@ -401,7 +410,6 @@ def decode_step(params, cache, tokens, pos, extras, cfg):
     writes each shared-block invocation's K/V row).
 
     Returns (cache, logits (B, V))."""
-    check_ported(cfg)
     x = embed_fwd(params["embed"], tokens[:, None])
     if cfg.rwkv is not None or cfg.ssm is not None:
         x = _recurrent_decode(params, cache, x, pos, cfg)

@@ -152,8 +152,8 @@ def _sharded_batch_counters(P):
 #: the ids are the cases' places in the list before telemetry was
 #: ported (its four cases, 1, 2, 5 and 6, went with it). The sharded
 #: cases 0, 3 and 4 raised until the sharded layer was ported: each now
-#: gives what the same call gives in the reference. "arch" is the later
-#: slice still to come (queue 1 item 11): it raises naming the roadmap.
+#: gives what the same call gives in the reference. "arch" was the last
+#: slice of queue 1 item 11 (the vision family): it resolves now.
 LATER = {
     0: lambda P: dataclasses.asdict(P.EngineConfig(sharding="lp_device")),
     3: _sharded_batch_counters,
@@ -168,12 +168,12 @@ def test_later_slices_raise_naming_the_roadmap(case):
     if LATER[case] is None:
         from repro import configs as rconfigs
         from repro_torch import configs as tconfigs
-        # yi-9b, the other dense families, MLA (deepseek-v3-671b) and the
-        # recurrent families are ported since; the vision family is not
+        # every family is ported since, the vision family last: its
+        # config is the reference's
         name = "internvl2-2b"
-        assert rconfigs.get_arch(name).name == name
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            tconfigs.get_arch(name)
+        assert dataclasses.asdict(tconfigs.get_arch(name)) == \
+            dataclasses.asdict(rconfigs.get_arch(name))
+        assert tconfigs.NOT_PORTED == ()
         return
     assert LATER[case](T) == LATER[case](R)
 

@@ -115,20 +115,21 @@ def test_full_config_as_the_repo_defines_it():
 
 
 def test_other_archs_raise_naming_the_roadmap():
-    for name in rcfg.ARCHS:
-        if name in tcfg.ARCHS:  # ported: the MoE and the dense families
-            continue
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcfg.get_arch(name)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcfg.get_smoke(name)
+    """Every other architecture is ported since (the encoder-decoder and
+    vision families last): an unknown name raises the reference's
+    KeyError, and an encoder-decoder config inits the `encdec` tree."""
+    assert set(rcfg.ARCHS) <= set(tcfg.ARCHS)
+    for get in (tcfg.get_arch, tcfg.get_smoke):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
     with pytest.raises(KeyError):
-        tcfg.get_arch("no-such-arch")
-    # MLA and the recurrent families are ported since; the
-    # encoder-decoder family is not
-    encdec = dataclasses.replace(tcfg.get_smoke(ARCH), encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tlm.init_params(torch.Generator().manual_seed(0), encdec)
+        rcfg.get_arch("no-such-arch")
+    encdec = dataclasses.replace(tcfg.get_smoke(ARCH), encoder_decoder=True,
+                                 moe=None)
+    p = tlm.init_params(torch.Generator().manual_seed(0), encdec)
+    assert sorted(p) == ["dec_layers", "embed", "enc_layers", "enc_norm",
+                         "final_norm", "src_proj"]
+    assert p["dec_layers"]["cross_attn"]["wk"].shape[0] == encdec.n_layers
 
 
 # --- modules ---------------------------------------------------------------
