@@ -40,35 +40,36 @@ and prints no result):
               2,000, solo and at R = 4, its output memory filled with a
               nonzero pattern first (every dead row must come out
               zero), and the dense kernel at 2,000 SEs, 500 of them dead
-  4. main     the default EngineConfig() (10k SEs, 1,200 steps) with
+  4. main     the default EngineConfig() (10k SEs, 300 of Exp. 1's
+              1,200 steps: `--steps`) with
               GAIA off and on through the cell-list kernel, and a world
               with area / range < 3 through the dense kernel; launch
               counts are set to 0 just before and read just after
   4b. replicas the batched engine, `Engine.run(seeds=...)`: the default
-              config, GAIA on, 1,200 steps, R = 10 seeds 0-9 in one pass
+              config, GAIA on, 300 steps, R = 10 seeds 0-9 in one pass
               (replica 0 bit-equal to phase main's GAIA-on run, replica
-              3 to a solo 300-step run; 1,200 cell-list launches for all
+              3 to a solo 300-step run; 300 cell-list launches for all
               ten; s/step, s/step a replica, t_batch / t_single and peak
               memory); exp6's epidemic and flock and the dense world,
-              R = 4, 100 steps (replica 1 bit-equal to its solo run; two
+              R = 4, 60 steps (replica 1 bit-equal to its solo run; two
               cell-list, one cell-sum and one dense launch a step,
               whatever R); the batched tuner
-              (`intra_run_tune_batch`, R = 4, window 100, 600 steps),
+              (`intra_run_tune_batch`, R = 4, window 100, 300 steps),
               each history the solo tuner's
   4c. sharded the LP-per-device engine (`repro_torch.parallel`): the
-              default config at D = 1, 2, 4 shards for 1,200 steps,
+              default config at D = 1, 2, 4 shards for 300 steps,
               each bit-equal to phase main's GAIA-on run (unsharded
               state and every series), shard_overflow 0, one cell-list
               launch a step (s/step against the oracle's, peak memory,
               halo_frac and LCR by 100-step window, bytes_on_wire), and
               the synchronising calls of an `Engine.step(300)` window
               against the oracle's; exp5's full world (50k SEs, 8 LPs)
-              at D = 8 for 300 steps; at D = 2 for 100 steps the dense
+              at D = 8 for 150 steps; at D = 2 for 60 steps the dense
               world, exp6's epidemic (2 cell-list launches a step),
               flock (1 cell-sum launch a step) and hotspot + kmeans
               every 50 (the oracle's capacity-assign launches), each
               bit-equal to its oracle; the open world at D = 4 (zero
-              churn against the closed world, exp9's churn for 40
+              churn against the closed world, exp9's churn for 20
               iterations, the queries against brute force); R = 4
               replicas at D = 2 against their solo runs; telemetry at
               D = 4 (ledger columns against the series, one trace span
@@ -78,7 +79,8 @@ and prints no result):
               --local-shards 4 --backend nccl`) against the in-process
               run; rwp at 2,000 SEs, D = 2, card against CPU
   5. scenarios exp6's fleet at full width (10k SEs, area 10,000, GAIA
-              on): the epidemic for 1,200 steps (two cell-list launches
+              on): the epidemic for 300 of its 1,200 steps (two
+              cell-list launches
               a step), hotspot, group, flock and trace replay, and
               exp7's hotspot with kmeans repartitioning every 100 steps
               (300 steps each), each priced by `wct_env` on four
@@ -98,9 +100,9 @@ and prints no result):
               its solo run's, t_service / t_sequential printed
   5c. obs     runtime telemetry at full width (the default config,
               ObsConfig(enabled=True, drain_every=10)): `Engine.step`
-              windows of 7, 293, 100 and 800 steps against the obs-off
+              windows of 7, 68, 25 and 200 steps against the obs-off
               window runner, bit-equal (state, counters, every ledger
-              counter column against its series), 1,200 rows, as many
+              counter column against its series), 300 rows, as many
               cell-list launches and synchronising calls (sync debug
               mode) on both sides; `overhead_ratio` (on / off, min of 3
               interleaved reps of 300 steps, beside the reference's
@@ -112,16 +114,16 @@ and prints no result):
               ledger on the card and the CPU
   6. scale    a 1M-SE window (area 100,000, paper density)
   7. cpu      the port on the card against the port on the CPU, for rwp
-              and every scenario at 2,000 SEs, 50 steps: integer series
+              and every scenario at 2,000 SEs, 30 steps: integer series
               identical, positions within one ULP of `area` (kmeans,
               voronoi and flock: their agreement is printed); batched
               rwp and hotspot runs (R = 3) held the same way; an open
-              world under churn (50 steps of 20 departures and arrivals)
+              world under churn (30 steps of 20 departures and arrivals)
               and a 3-slot ReplicaService of 5 requests, counters
               identical
   8. serve    qwen3-moe-30b-a3b at full width and depth (48 layers,
               random weights drawn on the card) serving 16 prompts of
-              512 tokens and 64 greedy steps with GAIA expert placement
+              512 tokens and 16 greedy steps with GAIA expert placement
               (examples/serve_moe.py's settings); launch counts set to
               0 just before and read just after. Then the same with GAIA
               off (tokens must be identical: placement is transparent),
@@ -133,7 +135,7 @@ and prints no result):
               1 MoE of 256 routed experts and a shared one; MTP head
               drawn, not run: 15.8 B parameters allocated, printed
               beside `param_count()`), run right after phase serve with
-              its traffic (16 x 512 prompts, 64 greedy steps), GAIA on
+              its traffic (16 x 512 prompts, 16 greedy steps), GAIA on
               and off (identical tokens); MLA prefill through the
               attention kernel at Dk 192 / Dv 128 (4 launches), absorbed
               MLA decode in torch ops (0 flash_decode launches), the
@@ -150,7 +152,11 @@ and prints no result):
               plain versions (calls in a row bit-equal; library:
               autograd through PyTorch's fused attention), the
               attention backward also at zamba2's (2, 32/32, 4,096,
-              128), rwkv6-1.6b's WKV intra-chunk forward at its training
+              128), the attention forward and backward at phase
+              encdec_vision_train's shapes (seamless's (2, 16/16, 4,096,
+              64) non-causal and causal, internvl2's (2, 16/8, 4,096,
+              128); library: SDPA and its autograd), rwkv6-1.6b's WKV
+              intra-chunk forward at its training
               microbatch (2, 32, 4,096, 64; 32 chunks) and serve prefill
               (16, 32, 512, 64) and its backward at both shapes, and at
               the training shape with steep decays and with a cliff of
@@ -158,8 +164,10 @@ and prints no result):
               largest |A|, 1e-4 of each gradient's largest value; one
               kernel a call, two calls bit-equal; beside the bound the
               exponentials the sub-chunk design evaluates and their
-              SFU time, and those of a direct exponent a pair; in a
-              fresh process of this script, `--wkv-child`);
+              SFU time, and those of a direct exponent a pair; these,
+              the gate's and the attention at encdec_vision_train's
+              shapes in a fresh process of this script,
+              `--train-kernels-child`);
               tinyllama-1.1b at full width and depth through
               `launch.train`'s Trainer (8 x 4,096 tokens a step in 4
               microbatches, AdamW, remat, chunked loss, 6 steps, an
@@ -172,7 +180,11 @@ and prints no result):
               after step 2 bit for bit); one float32 step of the two
               smokes on the card against the CPU (a REPRO_FORCE_F32=1
               subprocess; also rwkv6-smoke, whose step runs the WKV
-              pair at N 16, c 16, and zamba2-smoke). One 15.4 GB
+              pair at N 16, c 16, zamba2-smoke, seamless-smoke on its
+              source frames and internvl2-smoke on its vision
+              embeddings; loss, lr, params, the share of entries
+              further than a tenth of the step's move, grad norm). One
+              15.4 GB
               checkpoint is written: the card machine takes ~45 GiB of
               disk writes a call
  11. dense_serve qwen2-7b at full width and depth (28 layers, a group
@@ -184,7 +196,7 @@ and prints no result):
               6, 32 heads at D 128) at full width and depth, random
               weights drawn on the card (1.60 B and 1.28 B parameters
               allocated, printed beside `param_count()`), serving 16 x
-              512 prompts and 64 greedy steps: launches set to 0 just
+              512 prompts and 16 greedy steps: launches set to 0 just
               before and read just after (zamba2 7 attention, 448
               decode; rwkv6 24 WKV forward, one a layer), prefill s,
               decode ms a step, peak
@@ -198,13 +210,15 @@ and prints no result):
               through the kernels and through their plain versions.
               The attention kernels at
               zamba2's shapes are in phase kernels
- 13. recurrent_train rwkv6-1.6b and zamba2-1.2b at full width and depth
-              through `launch.train`'s Trainer with phase train's recipe
+ 13. recurrent_train rwkv6-1.6b and zamba2-1.2b at full width, cut to
+              12 of 24 and 18 of 38 layers (3 of 7 shared-block
+              passes), through `launch.train`'s Trainer with phase
+              train's recipe
               (8 x 4,096 tokens in 4 microbatches, AdamW, remat, loss
               chunk 1,024, 6 steps, no checkpoint): s/step (median of
               the last 4), tokens/s, the model-FLOPs share, peak memory
-              and launches a step, exactly 192 / 96 WKV (rwkv6) and 56 /
-              28 attention (zamba2) forward / backward; finite losses,
+              and launches a step, exactly 96 / 48 WKV (rwkv6) and 24 /
+              12 attention (zamba2) forward / backward; finite losses,
               every master weight moved; rwkv6 restarted from a host
               copy of its state after step 3 ends bit for bit (every
               leaf's sha256)
@@ -214,7 +228,7 @@ and prints no result):
               heads of 128, 256 vision tokens; 1.89 B) at full width and
               depth, random weights drawn on the card, serving 16 x 512
               (seamless: source frames; internvl2: prompt tokens, the
-              first 256 of them vision embeddings) and 64 greedy steps:
+              first 256 of them vision embeddings) and 16 greedy steps:
               launches set to 0 just before and read just after
               (seamless 12 non-causal attention a prefill and 24 decode
               a step, 12 self over the 64-row target cache and 12 cross
@@ -232,6 +246,23 @@ and prints no result):
               far whole prefills through the kernels, the plain
               versions and float32 land apart is printed. The attention
               kernels at their shapes are in phase kernels
+ 15. encdec_vision_train seamless-m4t-medium and internvl2-2b at full
+              width and depth through `launch.train`'s Trainer, whose
+              source adds the source frames (8 x 4,096 x 1,024) or the
+              vision embeddings (8 x 256 x 2,048), drawn from (seed,
+              step) in the prefetch thread, with phase recurrent_train's
+              recipe (8 x 4,096 tokens in 4 microbatches, AdamW, remat,
+              loss chunk 1,024, which seamless's full-vocabulary loss
+              ignores, 6 steps): s/step (median of the last 4),
+              tokens/s, the model-FLOPs share, peak memory and launches
+              a step, exactly 288 / 144 (seamless: 12 encoder, 12
+              decoder self and 12 cross attention layers, non-causal
+              but the self attention) and 192 / 96 (internvl2) attention
+              forward / backward, no decode, gate or WKV launch; finite
+              losses, every master weight moved; each restarted from a
+              host copy of its state after step 3 ends bit for bit
+              (every leaf's sha256). The kernels at its shapes are in
+              phase train
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -333,7 +364,11 @@ FLIP_MAX = 0.05
 #: H100's readings (PERF.md §6: float32 rwkv6 1.6e-5 / 1.9e-5,
 #: zamba2 2.8e-3 / 1.7e-2; bfloat16 rwkv6 0.036 / 0.046, zamba2 0.162 /
 #: 0.229, 0.132 / 0.282 through the plain versions; the CPU gives the
-#: same order with the same weights, `tools/recurrent_split_gap.py`)
+#: same order with the same weights, `tools/recurrent_split_gap.py`,
+#: but for zamba2 in float32, ~16x narrower: the card's library sums a
+#: prefill's 2,048-row products and a decode step's 4-row ones in other
+#: orders, and the random weights amplify that with depth; ROADMAP.md
+#: §3, F3)
 SPLIT_ROWS = {("rwkv6-1.6b", "float32"): (5e-5, 1e-4),
               ("zamba2-1.2b", "float32"): (1e-2, 5e-2),
               ("rwkv6-1.6b", "bfloat16"): (0.1, 0.15),
@@ -1590,35 +1625,48 @@ TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", layers=2, seq=4096, batch=4,
 #: input gradient is a difference of large terms), router_bias exact
 TRAIN_F32_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
+#: seamless's smoke attends almost by argmax (tests/test_torch_encdec.py),
+#: so its gradients move under a one-ULP change of its frames: where a
+#: batch has float inputs, the grad norm is held within TRAIN_ULP_FACTOR
+#: times the CPU's own move under that change where that is the larger
+#: bar (tests/test_torch_encdec_train.py's rule against the reference)
+TRAIN_ULP_FACTOR = 10
+#: and, since the warmup's first step moves each entry by about lr (3e-6
+#: here), below TRAIN_F32_TOL, at most this share of the entries may be
+#: further than a tenth of the step's move from the CPU's
+#: (tests/test_torch_encdec_train.py's FAR_SHARE)
+TRAIN_FAR_SHARE = 1e-3
 
 
-def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
-    """The backward kernel (and the forward's row log-sum-exp) against
-    autograd through the plain version in float32 on the same inputs:
-    each gradient within ATTN_TOL of its largest |value|; two calls
-    bit-equal; in bf16 at D 64 and 128 the kernels that ran are the wgmma
-    ones, never the mma.sync ones. The library call is autograd through
-    PyTorch's fused attention (its backward alone, on a kept graph)."""
+def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev, causal=True):
+    """The backward kernel (and the forward's row log-sum-exp), causal or
+    not (an encoder's and a cross attention's), against autograd through
+    the plain version in float32 on the same inputs: each gradient
+    within ATTN_TOL of its largest |value|; two calls bit-equal; in bf16
+    at D 64 and 128 the kernels that ran are the wgmma ones, never the
+    mma.sync ones. The library call is autograd through PyTorch's fused
+    attention (its backward alone, on a kept graph)."""
     from repro_torch.kernels.flash_attention import ops, ref
     F = torch.nn.functional
     q = _randn((B, H, S, D), 11, dev, dtype)
     k = _randn((B, Hkv, S, D), 12, dev, dtype)
     v = _randn((B, Hkv, S, D), 13, dev, dtype)
     do = _randn((B, H, S, D), 14, dev, dtype)
-    out, lse = ops._forward(q, k, v, True, True)
-    got = ops.flash_attention_bwd(q, k, v, out, do, lse, True)
+    out, lse = ops._forward(q, k, v, causal, True)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal)
     lse_err = float((lse - ref.flash_attention_lse_plain(
-        q, k, True)).abs().max())
+        q, k, causal)).abs().max())
     want = ref.flash_attention_grads_plain(
-        *(t.float() for t in (q, k, v, do)), True)
+        *(t.float() for t in (q, k, v, do)), causal)
     errs = [float((g.float() - w).abs().max() / w.abs().max())
             for g, w in zip(got, want)]
     del want
     torch.cuda.synchronize()
-    what = f"flash_attention_bwd at {(B, H, Hkv, S, D)} {dtype}"
+    what = (f"flash_attention_bwd at {(B, H, Hkv, S, D)} causal={causal} "
+            f"{dtype}")
     if max(errs) > ATTN_TOL[dtype] or lse_err > 1e-3:
         raise AssertionError(f"{what}: errors {errs}, lse {lse_err}")
-    again = ops.flash_attention_bwd(q, k, v, out, do, lse, True)
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, causal)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what}: two calls differ")
     del got, again
@@ -1626,13 +1674,14 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
     # read q, O, dO, k, v and lse once; write dq, dk, dv once
     nbytes = ((4 * B * H * S * D + 4 * B * Hkv * S * D) * esize
               + B * H * S * 4)
-    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
+    # the (query, key) pairs the mask keeps
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     ops_n = 10 * D * pairs  # S, dP, dV, dK, dQ: a multiply and an add each
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
     call = lambda: ops.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, do, lse, True)
+        q, k, v, out, do, lse, causal)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                              enable_gqa=True)
     lib = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, leaves, do, retain_graph=True)
@@ -1645,14 +1694,14 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev):
     new = [n for n in names if "wgmma_kernel" in n]
     if wgmma and (old or len(new) != 2):
         raise AssertionError(f"{what}: ran {names}, not the wgmma kernels")
-    res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": True,
+    res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": causal,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": max(errs),
            "errs_dq_dk_dv": errs, "lse_err": lse_err,
            "ms": time_ms(call, reps=5, batch=2),
            "kernel_device_ms": dev_ms, "device_kernels_per_call": per_call,
            "device_kernels": names, "device_ms_by_kernel": device_split(call),
            "plain_ms": time_ms(lambda: ref.flash_attention_grads_plain(
-               q, k, v, do, True), reps=3, batch=1, warmup=1),
+               q, k, v, do, causal), reps=3, batch=1, warmup=1),
            **bound(nbytes, ops_n, peak),
            "library_ms": time_ms(lib, reps=5, batch=2),
            "library_device_ms": device_ms(lib, calls=5)}
@@ -1854,48 +1903,73 @@ WKV_CHECKS = (((2, 32, 4096, 64, 128), "trained"),
               ((2, 32, 4096, 64, 128), "cliff"))
 
 
-def wkv_child(dev):
-    """Body of `--wkv-child`: the WKV pair's checks at WKV_CHECKS, one
-    JSON line."""
+def train_kernels_child(dev):
+    """Body of `--train-kernels-child`: the checks of phase train that
+    run in a fresh process (`child_checks`), one JSON line."""
+    bf, f32 = torch.bfloat16, torch.float32
     print(json.dumps({
         "wkv_intra": [check_wkv_intra(*shape, dev, decay)
                       for shape, decay in WKV_CHECKS],
         "wkv_intra_bwd": [check_wkv_intra_bwd(*shape, dev, decay)
-                          for shape, decay in WKV_CHECKS]}), flush=True)
+                          for shape, decay in WKV_CHECKS],
+        "moe_gate_bwd": [check_moe_gate_bwd(8192, 128, 8, f32, dev),
+                         check_moe_gate_bwd(8192, 128, 8, f32, dev,
+                                            ties=True)],
+        "flash_attention_bwd_train": [
+            check_flash_attention_bwd(B, H, Hkv, S, D, bf, dev, causal=c)
+            for B, H, Hkv, S, D, c in ENCDEC_VISION_TRAIN_SHAPES],
+        "flash_attention_train": [
+            check_flash_attention(B, H, Hkv, S, D, bf, dev, causal=c)
+            for B, H, Hkv, S, D, c in ENCDEC_VISION_TRAIN_SHAPES]}),
+        flush=True)
 
 
-def wkv_checks() -> dict:
-    """{"wkv_intra": [...], "wkv_intra_bwd": [...]}: the WKV pair's
-    checks, in a fresh process of this script (`--wkv-child`). Late in
-    the script torch.profiler twice recorded none of the backward's
-    launches in five traces in a row, which the one-kernel-a-call hold
-    reads; in a fresh process none of 60 traces lost one."""
+def child_checks() -> dict:
+    """`train_kernels_child`'s checks: the WKV pair's, the gate's
+    backward and probability-mean forward, and the attention forward and
+    backward at `ENCDEC_VISION_TRAIN_SHAPES`, in a fresh process of this
+    script (`--train-kernels-child`). Late in the script torch.profiler
+    twice recorded none of the WKV backward's launches in five traces in
+    a row, and once 19 of the gate's 20 forward launches in each of
+    five, which the one-kernel-a-call holds read; in a fresh process
+    none of 60 traces lost one."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--wkv-child"], capture_output=True, text=True,
-                          timeout=900)
+                           "--train-kernels-child"], capture_output=True,
+                          text=True, timeout=900)
     if proc.returncode != 0:
-        raise AssertionError(f"wkv child failed:\n{proc.stderr[-4000:]}")
+        raise AssertionError(f"train kernels child failed:\n"
+                             f"{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+#: phase encdec_vision_train's attention calls, (B, H, Hkv, S = Skv, D,
+#: causal) at its 2 x 4,096 microbatch: seamless-m4t-medium's encoder and
+#: cross attention (non-causal, 16/16 heads at D 64), its decoder's self
+#: attention (causal) and internvl2-2b's (causal, 16/8 heads at D 128)
+ENCDEC_VISION_TRAIN_SHAPES = ((2, 16, 16, 4096, 64, False),
+                              (2, 16, 16, 4096, 64, True),
+                              (2, 16, 8, 4096, 128, True))
 
 
 def check_train_kernels(dev):
     """The training path's kernels at the shapes its runs give them:
     tinyllama's and qwen2-7b's attention backward, zamba2's (32 query
-    and 32 KV heads at D 128, the branch without the group sum), the
-    gate's, and rwkv6-1.6b's WKV pair (both at the training microbatch
-    and at the serve prefill, and at the training microbatch with steep
-    decays and with a cliff; in a child process, `wkv_checks`)."""
+    and 32 KV heads at D 128, the branch without the group sum),
+    and, in a fresh process (`child_checks`), phase
+    encdec_vision_train's forward and backward
+    (`ENCDEC_VISION_TRAIN_SHAPES`), the gate's, and rwkv6-1.6b's WKV
+    pair (both at the training microbatch and at the serve prefill, and
+    at the training microbatch with steep decays and with a cliff)."""
     bf, f32 = torch.bfloat16, torch.float32
+    child = child_checks()
     return {
         "flash_attention_bwd": [
             check_flash_attention_bwd(2, 32, 4, 4096, 64, bf, dev),
             check_flash_attention_bwd(1, 28, 4, 4096, 128, bf, dev),
             check_flash_attention_bwd(1, 4, 2, 1024, 16, f32, dev),
-            check_flash_attention_bwd(2, 32, 32, 4096, 128, bf, dev)],
-        **wkv_checks(),
-        "moe_gate_bwd": [check_moe_gate_bwd(8192, 128, 8, f32, dev),
-                         check_moe_gate_bwd(8192, 128, 8, f32, dev,
-                                            ties=True)],
+            check_flash_attention_bwd(2, 32, 32, 4096, 128, bf, dev),
+            *child.pop("flash_attention_bwd_train")],
+        **child,
         # qwen2-7b's group of 7 at D 128, forward and decode
         "flash_attention_g7": [
             check_flash_attention(1, 28, 4, 4096, 128, bf, dev)],
@@ -1917,7 +1991,7 @@ def _digests(state) -> list:
     def one(t):
         arr, dt = _to_host(t)
         return hashlib.sha256(arr.data).hexdigest() + ":" + dt
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
         return list(ex.map(one, tree.leaves(state)))
 
 
@@ -1926,9 +2000,10 @@ def _train_run(cfg, spec, steps, ckpt, dev, fail_at=None, snapshot_at=0):
     checkpoint every spec["checkpoint_every"] steps, async; none at the
     end: the card machine's disk takes ~45 GiB of writes a call, and
     tinyllama's state is 15.4 GB). Returns (result, or None where it
-    crashed as asked; per-step loss, grad norm and lr; per-step seconds,
-    without the snapshot's copy; the run's trainer; the state after step
-    `snapshot_at` on the host, or None)."""
+    crashed as asked; per-step loss, grad norm, lr and the allocator's
+    retries so far; per-step seconds, without the snapshot's copy; the
+    run's trainer; the state after step `snapshot_at` on the host, or
+    None)."""
     from repro_torch import tree
     from repro_torch.launch.steps import TrainCtx
     from repro_torch.launch.train import make_trainer
@@ -1942,8 +2017,10 @@ def _train_run(cfg, spec, steps, ckpt, dev, fail_at=None, snapshot_at=0):
 
     def step_fn(*args):
         out = inner(*args)
-        per_step.append({k: float(out[3][k])
-                         for k in ("loss", "grad_norm", "lr")})
+        per_step.append({**{k: float(out[3][k])
+                            for k in ("loss", "grad_norm", "lr")},
+                         "alloc_retries": torch.cuda.memory_stats().get(
+                             "num_alloc_retries", 0)})
         if snapshot_at and len(per_step) == snapshot_at:
             # a copy: the next step updates the optimizer state in place
             t0 = time.perf_counter()
@@ -2157,20 +2234,25 @@ def train_moe(steps: int, smi: str, dev):
 TRAIN_CPU = {"tinyllama-1.1b": "flash_attention_bwd",
              "qwen3-moe-30b-a3b": "flash_attention_bwd",
              "rwkv6-1.6b": "wkv_intra_bwd",
-             "zamba2-1.2b": "flash_attention_bwd"}
+             "zamba2-1.2b": "flash_attention_bwd",
+             "seamless-m4t-medium": "flash_attention_bwd",
+             "internvl2-2b": "flash_attention_bwd"}
 
 
 def train_cpu_child(dev):
     """Body of phase train's float32 subprocess (REPRO_FORCE_F32=1): one
-    train step of the dense, the MoE and the two recurrent smoke configs
-    on `dev` and on the CPU from the same weights and batch. Prints one
-    JSON line."""
+    train step of the dense, the MoE, the two recurrent, the
+    encoder-decoder and the vision-token smoke configs on `dev` and on
+    the CPU from the same weights and batch (the trainer's source's:
+    frames or vision embeddings where the family takes them). Prints
+    one JSON line."""
     from repro_torch import tree
     from repro_torch.configs import get_smoke
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch.steps import TrainCtx, build_train_step
+    from repro_torch.launch.train import batch_source
     from repro_torch.models import lm
     from repro_torch.optim.adamw import adamw_init
     out = {}
@@ -2179,8 +2261,8 @@ def train_cpu_child(dev):
         S, B = 64, 8
         fn = build_train_step(cfg, ShapeConfig("t", S, B, "train"),
                               TrainCtx(num_microbatches=2, loss_chunk=16))
-        batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=1)
-                            ).batch_at(0)
+        data_cfg = DataConfig(cfg.vocab_size, S, B, seed=1)
+        batch = batch_source(cfg, data_cfg).batch_at(0)
         params = lm.init_params(torch.Generator().manual_seed(3), cfg)
         runs = {}
         kbuild.reset_launches()
@@ -2190,13 +2272,34 @@ def train_cpu_child(dev):
                               batch)
         torch.cuda.synchronize()
         c, g = runs["cpu"], runs[str(dev)]
-        rel = {k: abs(float(g[3][k]) - float(c[3][k]))
-               / max(abs(float(c[3][k])), 1e-30)
+
+        def rel_to(m, want):
+            return abs(float(m) - float(want)) / max(abs(float(want)),
+                                                     1e-30)
+        rel = {k: rel_to(g[3][k], c[3][k])
                for k in ("loss", "grad_norm", "lr")}
         perr = max(float((a.cpu() - b).abs().max()) for a, b in
                    zip(tree.leaves(g[0]), tree.leaves(c[0])))
+        # the step's move on the CPU, and the share of entries the card
+        # put further than a tenth of it from the CPU's
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(tree.leaves(c[0]), tree.leaves(params)))
+        far = sum(int(((a.cpu() - b).abs() > 0.1 * moved).sum()) for a, b
+                  in zip(tree.leaves(g[0]), tree.leaves(c[0])))
+        ulp_move = 0.0
+        for k in ("frames", "vision_embeds"):
+            if k in batch:  # the CPU's own step, that input one ULP up
+                up = dict(batch, **{k: torch.nextafter(
+                    batch[k], torch.tensor(math.inf))})
+                m = fn(params, adamw_init(params),
+                       lm.init_extras(cfg, "cpu"), up)[3]
+                ulp_move = rel_to(m["grad_norm"], c[3]["grad_norm"])
         row = {"params_dtype": str(tree.leaves(params)[0].dtype),
-               "metric_rel": rel, "param_err": perr,
+               "metric_rel": rel, "param_err": perr, "moved": moved,
+               "far_share": far / sum(t.numel() for t in
+                                      tree.leaves(params)),
+               "grad_tol": max(TRAIN_GRAD_TOL, TRAIN_ULP_FACTOR * ulp_move),
+               "cpu_ulp_move": ulp_move,
                "launches": {k: n for k, n in kbuild.launches().items() if n},
                "backward_kernel": TRAIN_CPU[arch]}
         if cfg.moe is not None:
@@ -2217,13 +2320,15 @@ def train_cpu(smi: str):
         raise AssertionError(f"train cpu child failed:\n{proc.stderr}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     emit(phase="train", run="card vs cpu", card=smi, dtype="float32",
-         tol=TRAIN_F32_TOL, grad_tol=TRAIN_GRAD_TOL, **res)
+         tol=TRAIN_F32_TOL, grad_tol=TRAIN_GRAD_TOL,
+         far_share_max=TRAIN_FAR_SHARE, **res)
     for name, r in res.items():
         rel = r["metric_rel"]
         bad = (r["params_dtype"] != "torch.float32"
                or max(rel["loss"], rel["lr"]) > TRAIN_F32_TOL
-               or rel["grad_norm"] > TRAIN_GRAD_TOL
+               or rel["grad_norm"] > r["grad_tol"]
                or r["param_err"] > TRAIN_F32_TOL
+               or not (r["moved"] > 0 and r["far_share"] <= TRAIN_FAR_SHARE)
                or not r.get("router_bias_equal", True)
                or r["launches"].get(r["backward_kernel"], 0) < 1)
         if bad:
@@ -2604,9 +2709,13 @@ def recurrent_serve_phase(gen: int, smi: str, dev):
 #: written (the call's disk), rwkv6 restarts from a host copy of its
 #: state after step `snapshot_at` and runs to step `steps` again (the
 #: median of the last 4 steps needs 4 after the snapshot's step)
+#: phase recurrent_train: both at full width, cut to half their depth
+#: since PR 31 (rwkv6 12 of 24 layers; zamba2 18 of 38, 3 shared-block
+#: passes of 7) to keep the script inside its time limit
 TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "zamba2-1.2b"), seq=4096,
                        batch=8, microbatches=4, loss_chunk=1024,
-                       checkpoint_every=1000, snapshot_at=3, steps=6)
+                       checkpoint_every=1000, snapshot_at=3, steps=6,
+                       layers={"rwkv6-1.6b": 12, "zamba2-1.2b": 18})
 
 
 def _recurrent_flops_per_token(cfg, params, seq: int) -> int:
@@ -2629,12 +2738,13 @@ def _recurrent_flops_per_token(cfg, params, seq: int) -> int:
 
 
 def recurrent_train_phase(smi: str, dev):
-    """rwkv6-1.6b and zamba2-1.2b at full width and depth through the
-    Trainer, `steps` steps each: s/step (median of the last 4), tokens/s,
-    the model-FLOPs share of 989 TFLOP/s, peak memory and launches a
-    step, which must be exactly rwkv6's WKV forward 2 x 24 x 4 (the
-    forward and remat's recompute) and backward 24 x 4, and zamba2's
-    attention forward 2 x 7 x 4 and backward 7 x 4; losses and grad
+    """rwkv6-1.6b and zamba2-1.2b at full width, cut to
+    `TRAIN_RECURRENT["layers"]`, through the Trainer, `steps` steps each:
+    s/step (median of the last 4), tokens/s, the model-FLOPs share of
+    989 TFLOP/s, peak memory and launches a step, which must be exactly
+    rwkv6's WKV forward 2 x L x 4 (the forward and remat's recompute)
+    and backward L x 4, and zamba2's attention forward 2 x n x 4 and
+    backward n x 4 (n shared-block passes); losses and grad
     norms finite, every master weight moved; rwkv6 restarted from a host
     copy of its state after step `snapshot_at` ends bit for bit where
     the run ended (every leaf's sha256). Returns {arch: its row}."""
@@ -2655,7 +2765,8 @@ def recurrent_train_phase(smi: str, dev):
     out = {}
     for arch in spec["archs"]:
         torch.cuda.empty_cache()
-        cfg = get_arch(arch)
+        cfg = dataclasses.replace(get_arch(arch),
+                                  n_layers=spec["layers"][arch])
         rwkv = cfg.rwkv is not None
         torch.cuda.reset_peak_memory_stats()
         kbuild.reset_launches()
@@ -3029,6 +3140,134 @@ def encdec_vision_serve_phase(gen: int, smi: str, dev):
                                  f"{tuple(run['tokens'].shape)}")
         out[arch] = res
         del params, run
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase encdec_vision_train: the encoder-decoder and vision families
+# trained at full width and depth
+# ---------------------------------------------------------------------------
+
+#: phase encdec_vision_train: phase recurrent_train's recipe (8 x 4,096
+#: tokens in 4 microbatches, AdamW, remat full, loss chunk 1,024, which
+#: internvl2 takes and seamless's full-vocabulary loss ignores, as the
+#: reference's does), each run restarted from a host copy of its state
+#: after step `snapshot_at`
+TRAIN_ENCDEC_VISION = dict(archs=("seamless-m4t-medium", "internvl2-2b"),
+                           seq=4096, batch=8, microbatches=4,
+                           loss_chunk=1024, checkpoint_every=1000,
+                           snapshot_at=3, steps=6)
+
+
+def _encdec_vision_flops_per_token(cfg, params, seq: int) -> float:
+    """Model FLOPs a token of a train step of an encoder-decoder or a
+    vision-token config: 6 x the matmul parameters (the input embedding
+    is a lookup; `vision_proj` runs on n_vision_tokens of the `seq`
+    positions) plus 12 S d_attn a non-causal layer (the encoder's and
+    the cross attention, S_src = S) and 6 S d_attn a causal one."""
+    from repro_torch import tree
+    n = (sum(t.numel() for t in tree.leaves(params))
+         - params["embed"]["embedding"].numel())
+    d_attn = cfg.n_heads * cfg.resolved_head_dim
+    if cfg.encoder_decoder:
+        return 6 * n + (12 + 12 + 6) * cfg.n_layers * seq * d_attn
+    vp = params["vision_proj"].numel()
+    return (6 * (n - vp) + 6 * vp * cfg.n_vision_tokens / seq
+            + 6 * cfg.n_layers * seq * d_attn)
+
+
+def encdec_vision_train_phase(smi: str, dev):
+    """seamless-m4t-medium and internvl2-2b at full width and depth
+    through the Trainer (`launch.train.make_trainer`, whose source adds
+    the source frames or the vision embeddings), `steps` steps each:
+    s/step (median of the last 4), tokens/s, the model-FLOPs share of 989
+    TFLOP/s, peak memory and launches a step, which must be exactly
+    seamless's attention forward 2 x 36 x 4 (12 encoder, 12 decoder
+    self and 12 cross attention layers a microbatch; the forward and
+    remat's recompute) and backward 36 x 4, internvl2's 2 x 24 x 4 and
+    24 x 4, no flash decode, gate or WKV launch; losses and grad norms
+    finite, every master weight moved; a restart from a host copy of the
+    state after step `snapshot_at` ends bit for bit where the run ended
+    (every leaf's sha256). Returns {arch: its row}."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    spec = TRAIN_ENCDEC_VISION
+    mb, at, steps = (spec[k] for k in ("microbatches", "snapshot_at",
+                                       "steps"))
+    if not 0 < at < steps:
+        raise ValueError(f"encdec_vision_train: a snapshot after step {at} "
+                         f"of {steps} leaves no step to replay")
+    root = os.path.join(HERE, "results", "train_encdec_vision_ckpt")
+    out = {}
+    for arch in spec["archs"]:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        res, per_step, secs, tr, snap = _train_run(
+            cfg, spec, steps, root, dev, snapshot_at=at)
+        wall = time.perf_counter() - t0
+        launches = kbuild.launches()
+        peak = torch.cuda.max_memory_allocated()
+        moved = _moved(cfg, res["opt_state"]["master"], dev)
+        flops_tok = _encdec_vision_flops_per_token(cfg, res["params"],
+                                                   spec["seq"])
+        n_attn = (3 if cfg.encoder_decoder else 1) * cfg.n_layers
+        want = {"flash_attention": 2 * n_attn * mb,
+                "flash_attention_bwd": n_attn * mb, "flash_decode": 0,
+                "moe_gate": 0, "wkv_intra": 0, "wkv_intra_bwd": 0}
+        first = (_digests(_state(res)), res["data_step"],
+                 per_step[-1]["loss"])
+        del res
+        t1 = time.perf_counter()
+        state = tree.tree_map(lambda t: t.to(dev), snap)
+        del snap
+        for i in range(at, steps):
+            *state, m = tr.step_fn(*state, tr.source.batch_at(i))
+        second = (_digests(tuple(state)), steps, float(m["loss"]))
+        del state, m
+        restart = {"from_step": at, "steps": steps - at,
+                   "seconds": time.perf_counter() - t1,
+                   "leaves": len(first[0]), "bit_exact": first == second}
+        shutil.rmtree(root, ignore_errors=True)
+        s_step = statistics.median(secs[-4:])
+        tokens = spec["batch"] * spec["seq"]
+        row = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+               "encoder_decoder": cfg.encoder_decoder,
+               "vision_tokens": cfg.n_vision_tokens,
+               "params": cfg.param_count(),
+               **{k: spec[k] for k in ("seq", "batch", "microbatches",
+                                       "loss_chunk")},
+               "steps": steps, "remat": "full", "optimizer": "adamw",
+               "s_per_step": s_step, "step_seconds": secs,
+               "tokens_per_s": tokens / s_step,
+               "model_flops_per_step": flops_tok * tokens,
+               "mfu_vs_989_tflops": flops_tok * tokens / s_step
+               / PEAK_BF16_S,
+               "max_memory_allocated": peak, "wall_s": wall,
+               "launches": {k: launches[k] for k in want},
+               "launches_per_step": {k: n / steps for k, n in
+                                     launches.items() if n},
+               "per_step": per_step, "params_moved_min": min(moved),
+               "restart": restart}
+        emit(phase="encdec_vision_train", **row)
+        if any(launches[k] != n * steps for k, n in want.items()):
+            raise AssertionError(f"encdec_vision_train {arch}: launched "
+                                 f"{launches}, want {want} a step")
+        if not _finite(per_step) or min(moved) <= 0:
+            raise AssertionError(f"encdec_vision_train {arch}: a non-finite "
+                                 f"loss or grad norm, or a weight that did "
+                                 f"not move")
+        if not restart["bit_exact"]:
+            raise AssertionError(f"encdec_vision_train {arch}: the restart "
+                                 f"from step {at} differs")
+        out[arch] = row
+        del tr
     torch.cuda.empty_cache()
     return out
 
@@ -4356,33 +4595,39 @@ def profile(steps: int, dev, scenario: str = "", n_rep: int = 1):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--steps", type=int, default=1200)
+    # 300 of Exp. 1's 1,200 steps, and below the epidemic's 300 of its
+    # 1,200, the cpu phase's 30, the batched scenarios' 60, the tuners'
+    # 300, 6 service requests, exp5's 150 steps, the sharded worlds' 60
+    # (kmeans repartitions at 50) and 20 churn iterations, and 16 decode
+    # steps: cut so that the script stays inside its time limit as it
+    # grows
+    p.add_argument("--steps", type=int, default=300)
     p.add_argument("--dense-steps", type=int, default=200)
     p.add_argument("--scale-steps", type=int, default=20)
-    p.add_argument("--cpu-steps", type=int, default=50,
+    p.add_argument("--cpu-steps", type=int, default=30,
                    help="steps of the cpu phase's runs, its churn script "
                         "included, and of phase obs's card-against-CPU "
                         "ledger")
-    p.add_argument("--epi-steps", type=int, default=1200,
+    p.add_argument("--epi-steps", type=int, default=300,
                    help="steps of the scenarios phase's epidemic run")
     p.add_argument("--scenario-steps", type=int, default=300,
                    help="steps of the scenarios phase's other runs")
-    p.add_argument("--replica-scenario-steps", type=int, default=100,
+    p.add_argument("--replica-scenario-steps", type=int, default=60,
                    help="steps of the replicas phase's epidemic and flock")
-    p.add_argument("--tune-steps", type=int, default=600,
+    p.add_argument("--tune-steps", type=int, default=300,
                    help="steps of the replicas phase's batched tuner")
     p.add_argument("--service-iters", type=int, default=120,
                    help="iterations of the service phase's churn loop")
-    p.add_argument("--service-requests", type=int, default=12,
+    p.add_argument("--service-requests", type=int, default=6,
                    help="requests of the service phase's ReplicaService")
-    p.add_argument("--exp5-steps", type=int, default=300,
+    p.add_argument("--exp5-steps", type=int, default=150,
                    help="steps of the sharded phase's exp5 full world")
-    p.add_argument("--shard-steps", type=int, default=100,
+    p.add_argument("--shard-steps", type=int, default=60,
                    help="steps of the sharded phase's other worlds")
-    p.add_argument("--shard-churn", type=int, default=40,
+    p.add_argument("--shard-churn", type=int, default=20,
                    help="churn iterations of the sharded phase's open "
                         "world")
-    p.add_argument("--gen", type=int, default=64,
+    p.add_argument("--gen", type=int, default=16,
                    help="decode steps of the serve phases (serve, "
                         "mla_serve, recurrent_serve, encdec_vision_serve)")
     p.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -4402,7 +4647,7 @@ def main():
                    help=argparse.SUPPRESS)
     p.add_argument("--recurrent-f32-child", action="store_true",
                    help=argparse.SUPPRESS)
-    p.add_argument("--wkv-child", action="store_true",
+    p.add_argument("--train-kernels-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
@@ -4419,8 +4664,8 @@ def main():
     if a.recurrent_f32_child:
         recurrent_f32_child(torch.device("cuda"))
         return
-    if a.wkv_child:
-        wkv_child(torch.device("cuda"))
+    if a.train_kernels_child:
+        train_kernels_child(torch.device("cuda"))
         return
     dev = torch.device("cuda")
     smi = card()
@@ -4515,6 +4760,8 @@ def main():
                             dev)
     encdec_vision = timed("encdec_vision_serve", encdec_vision_serve_phase,
                           a.gen, smi, dev)
+    encdec_vision_train = timed("encdec_vision_train",
+                                encdec_vision_train_phase, smi, dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -4571,14 +4818,16 @@ def main():
 
     def family_launches(stem):
         """A kernel's launches in each recurrent phase's runs and in
-        phase encdec_vision_serve's."""
+        phases encdec_vision_serve's and encdec_vision_train's."""
         return {f"{phase}_launches": {arch: runs[arch]["launches"].get(
                     stem, 0) for arch in spec["archs"]}
                 for phase, runs, spec in (
                     ("recurrent_serve", recurrent, RECURRENT_SERVE),
                     ("recurrent_train", recurrent_train, TRAIN_RECURRENT),
                     ("encdec_vision_serve", encdec_vision,
-                     ENCDEC_VISION_SERVE))}
+                     ENCDEC_VISION_SERVE),
+                    ("encdec_vision_train", encdec_vision_train,
+                     TRAIN_ENCDEC_VISION))}
 
     def measured(shape):
         """The kernels line's measured fields of a kernel's main shape."""
@@ -4604,7 +4853,8 @@ def main():
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
             **measured(main_shape),
-            "shapes": shapes[k] + train_shapes.get(f"{k}_g7", [])})
+            "shapes": shapes[k] + train_shapes.get(f"{k}_g7", [])
+            + train_shapes.get(f"{k}_train", [])})
     for k, (name, stem, source, replaces, runs) in train_meta.items():
         main_shape = train_shapes[k][0]
         kernels.append({

@@ -8,11 +8,15 @@ crash-safe resume, through `runtime.Trainer`.
         --seq 4096 --batch 8 --microbatches 4 --loss-chunk 1024 --steps 6
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \\
         --device cpu --steps 4 --seq 32 --batch 4
+    python -m repro_torch.launch.train --arch seamless-m4t-medium \\
+        --smoke --device cpu --steps 2 --seq 16 --batch 4
 
 Weights are random, drawn from `--seed` on the device. It runs on the
 card unless `--device cpu` is passed. `--fail-at N` crashes after step
 N (a restart from the newest checkpoint resumes there). `--layers L`
-cuts the depth (full width). Prints one JSON line.
+cuts the depth (full width). An encoder-decoder's batches add source
+frames and a vision-token config's its vision embeddings
+(`FamilyInputs`). Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -22,16 +26,63 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
-from repro_torch.data.pipeline import DataConfig
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch.steps import TrainCtx, build_train_step, opt_init
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.encdec import FRAME_DIM
+from repro_torch.models.layers import COMPUTE_DT
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+#: the third key word of each input's generator, (seed, step, word): the
+#: tokens' generator is (seed, step), so these draws never move them
+FRAMES_KEY, VISION_KEY = 1, 2
+
+
+class FamilyInputs:
+    """The training batches of a family whose batch holds more than
+    tokens (`repro.launch.specs.train_batch_specs`): `SyntheticLM`'s
+    tokens and loss mask, bit for bit, and an encoder-decoder's source
+    frames (B, S, FRAME_DIM) or a vision-token config's vision
+    embeddings (B, n_vision_tokens, d), standard normal in the compute
+    dtype. Each is drawn from a generator of its own keyed by (seed,
+    step, word), so a restarted run replays it. `batch_at(step)` runs
+    in the pipeline's prefetch thread."""
+
+    def __init__(self, cfg, data_cfg: DataConfig):
+        self.cfg, self.data_cfg = cfg, data_cfg
+        self.tokens = SyntheticLM(data_cfg)
+
+    def _normal(self, step: int, word: int, shape):
+        rng = np.random.default_rng((self.data_cfg.seed, step, word))
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).to(COMPUTE_DT)
+
+    def batch_at(self, step: int) -> dict:
+        out = self.tokens.batch_at(step)
+        B, S = self.data_cfg.global_batch, self.data_cfg.seq_len
+        if self.cfg.encoder_decoder:
+            out["frames"] = self._normal(step, FRAMES_KEY,
+                                         (B, S, FRAME_DIM))
+        if self.cfg.n_vision_tokens:
+            out["vision_embeds"] = self._normal(
+                step, VISION_KEY,
+                (B, self.cfg.n_vision_tokens, self.cfg.d_model))
+        return out
+
+
+def batch_source(cfg, data_cfg: DataConfig):
+    """`FamilyInputs` where `cfg`'s batch holds more than tokens, else
+    `SyntheticLM`."""
+    if cfg.encoder_decoder or cfg.n_vision_tokens:
+        return FamilyInputs(cfg, data_cfg)
+    return SyntheticLM(data_cfg)
 
 
 def make_trainer(cfg, *, seq: int, batch: int, steps: int,
@@ -40,8 +91,9 @@ def make_trainer(cfg, *, seq: int, batch: int, steps: int,
                  checkpoint_every: int = 25, async_save: bool = True,
                  save_final: bool = True, log=print) -> Trainer:
     """The Trainer of `cfg` on the synthetic stream (vocab = the
-    config's): weights from `seed` on `device` (the card by default),
-    the optimizer `px.optimizer`, checkpoints in `ckpt_dir`."""
+    config's; `batch_source`'s inputs where the family needs them):
+    weights from `seed` on `device` (the card by default), the optimizer
+    `px.optimizer`, checkpoints in `ckpt_dir`."""
     dev = resolve_device(device)
     opt = opt or AdamWConfig(warmup_steps=min(100, steps),
                              total_steps=max(steps, 1))
@@ -58,7 +110,8 @@ def make_trainer(cfg, *, seq: int, batch: int, steps: int,
     tcfg = TrainerConfig(total_steps=steps, checkpoint_every=checkpoint_every,
                          checkpoint_dir=ckpt_dir, async_save=async_save,
                          log_every=1, save_final=save_final)
-    return Trainer(tcfg, step_fn, init_state, data_cfg, log=log, device=dev)
+    return Trainer(tcfg, step_fn, init_state, data_cfg, log=log, device=dev,
+                   source=batch_source(cfg, data_cfg))
 
 
 def main(argv=None):

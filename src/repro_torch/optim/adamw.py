@@ -2,9 +2,8 @@
 warmup + cosine schedule — the port of `repro.optim.adamw` on one device
 (no ZeRO sharding: that belongs to the LM stack's parallelism).
 
-Trees are the port's nested dicts of tensors (`repro_torch.tree`); the
-leaves are walked in the reference's order, so the global norm adds its
-terms as the reference does. The step count is a 0-d int32 tensor and
+Trees are the port's nested dicts of tensors (`repro_torch.tree`),
+walked in the reference's order. The step count is a 0-d int32 tensor and
 the schedule is computed on its device, so a step never waits on the
 host.
 """
@@ -51,12 +50,17 @@ def adamw_init(params):
 
 
 def global_norm(grads):
-    """sqrt of the sum over leaves (in the reference's order) of each
-    leaf's float32 sum of squares."""
-    total = 0
-    for g in tree.leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
+    """The gradients' L2 norm, float32: each leaf's norm accumulated in
+    float64, then the norm of those.
+
+    The reference sums float32 squares, so a norm past ~1.8e19 is inf
+    there and its clip then zeroes the whole step; seamless-m4t-medium's
+    random-weight gradients at full width get there. Below that the two
+    agree to float32 rounding (a deliberate difference, ROADMAP.md
+    §3)."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float64)
+             for g in tree.leaves(grads)]
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 def clip_scale(c: AdamWConfig, gnorm):

@@ -53,16 +53,20 @@ def _sync(state) -> None:
 class Trainer:
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  init_state: Callable[[], tuple], data_cfg: DataConfig,
-                 log: Callable[[str], None] = print, device=None):
+                 log: Callable[[str], None] = print, device=None,
+                 source=None):
         """step_fn(params, opt_state, extras, batch) ->
         (params, opt_state, extras, metrics); init_state() builds the
         step-0 (params, opt_state, extras) on `device`, where a resumed
         run's checkpoint is restored too: the card unless the caller
-        passes device="cpu" (raises where no GPU is visible)."""
+        passes device="cpu" (raises where no GPU is visible). `source`
+        gives the batches (`batch_at(step)`, a pure function of the
+        step; None: `make_pipeline`'s `SyntheticLM(data_cfg)`)."""
         self.cfg = cfg
         self.step_fn = step_fn
         self.init_state = init_state
         self.data_cfg = data_cfg
+        self.source = source
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
         self.watchdog = Watchdog()
         self.log = log
@@ -85,7 +89,8 @@ class Trainer:
             (params, opt_state, extras), step0 = self.ckpt.restore(
                 device=self.device)
             self.log(f"[trainer] resumed from step {step0}")
-        data = make_pipeline(self.data_cfg, start_step=step0)
+        data = make_pipeline(self.data_cfg, start_step=step0,
+                             source=self.source)
 
         metrics = {}
         cursor = step0

@@ -223,13 +223,16 @@ def _manifest_shas(d, step):
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-moe-30b-a3b",
-                                  "rwkv6-1.6b", "zamba2-1.2b"])
+                                  "rwkv6-1.6b", "zamba2-1.2b",
+                                  "seamless-m4t-medium", "internvl2-2b"])
 def test_lm_crash_restart_bit_exact(tmp_path, arch):
     """The real train step (AdamW, microbatches, chunked loss, remat,
     for MoE the router-bias update; rwkv6 through the WKV kernel's
     differentiable wrapper, zamba2 through its shared block's seven
-    passes a step summed into one leaf): killed after step 3, restarted from
-    its step-2 checkpoint, it ends with the uninterrupted run's params,
+    passes a step summed into one leaf; seamless and internvl2 on the
+    source frames and vision embeddings of `launch.train.FamilyInputs`,
+    replayed from the step): killed after step 3, restarted from its
+    step-2 checkpoint, it ends with the uninterrupted run's params,
     optimizer state, extras and data cursor, bit for bit."""
     torch.set_num_threads(1)
     d1, d2 = tmp_path / "a", tmp_path / "b"

@@ -1,11 +1,14 @@
 """Profile a tinyllama-1.1b training step by kernel, and time the attention
 backward alone, for several checkouts of this repo in turns, on one GPU.
 
-    python3 tools/profile_train.py DIR [DIR ...] [--steps N] [--arch A]
+    python3 tools/profile_train.py DIR [DIR ...] [--steps N] [--traced K]
+        [--arch A]
 
-`--arch rwkv6-1.6b` (or `zamba2-1.2b`, at full width and depth) profiles
-that arch's step with the same recipe instead, without the attention
-backward's shapes.
+`--arch rwkv6-1.6b` (or `zamba2-1.2b`, `seamless-m4t-medium`,
+`internvl2-2b`, at full width and depth) profiles that arch's step with
+the same recipe instead, without the attention backward's shapes; the
+batches come from the trainer's source (with an encoder-decoder's
+source frames or the vision embeddings).
 
 Each DIR is the root of a checkout: `.` for this one, or an earlier
 commit unpacked under a git-ignored directory
@@ -22,8 +25,11 @@ DIR's own build directory, and
 2. builds phase train's tinyllama-1.1b run (`chip_smoke.TRAIN`: 8 x
    4,096 tokens in 4 microbatches, AdamW, remat full, loss chunk 1,024)
    through `launch.train.make_trainer`, runs the Trainer's step function
-   on the synthetic stream for N steps (no checkpoints), then traces one
-   more step with `torch.profiler`: device time by kernel and by group
+   on its source's batches for N steps (no checkpoints), then traces K
+   more steps, each in a profile of its own (every step's seconds, the
+   allocator's retries in it and the card's SM clock, power and
+   temperature after it; each traced step's device ms and busy share),
+   and of the last: device time by kernel and by group
    (attention backward and forward, GEMMs, elementwise and reductions,
    the rest), the device's busy share of the step, the kernels a step,
    the host's busiest operators (self CPU ms), and s/step (median of the
@@ -110,7 +116,38 @@ def backward(cs, dev):
         del lib_out, leaves
 
 
-def train_step(cs, dev, steps: int, arch: str):
+def clocks() -> str:
+    """The card's SM clock, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def kernels(prof):
+    """({kernel name: (device us, calls)}, [(start, end) of each])."""
+    import torch
+    by_kernel, spans = {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n, c = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (n + us, c + 1)
+            spans.append((e.time_range.start, e.time_range.end))
+    return by_kernel, spans
+
+
+def busy_us(spans) -> float:
+    """The union of the kernels' intervals, us."""
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def train_step(cs, dev, steps: int, arch: str, traced_steps: int = 1):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,40 +159,51 @@ def train_step(cs, dev, steps: int, arch: str):
     px = TrainCtx(num_microbatches=spec["microbatches"],
                   loss_chunk=spec["loss_chunk"])
     tr = make_trainer(cfg, seq=spec["seq"], batch=spec["batch"],
-                      steps=steps + 1, device=dev,
+                      steps=steps + traced_steps, device=dev,
                       ckpt_dir=str(ROOT / "results" / "profile_ckpt"),
                       px=px, log=lambda s: None)
     state = tr.init_state()
-    data = make_pipeline(tr.data_cfg, start_step=0)
-    secs = []
-    for _ in range(steps):
+    # a tree from before the Trainer took a source streams tokens only
+    data = make_pipeline(tr.data_cfg, start_step=0,
+                         source=getattr(tr, "source", None))
+
+    def one_step(state):
+        """One step on the next batch: (state, seconds, {seconds, the
+        allocator's retries in the step, the card's clocks after it})."""
         batch = next(data)
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         t0 = time.perf_counter()
         *state, m = tr.step_fn(*state, batch)
         float(m["loss"])  # the step's end
-        secs.append(time.perf_counter() - t0)
-    batch = next(data)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        *state, m = tr.step_fn(*state, batch)
-        float(m["loss"])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        sec = time.perf_counter() - t0
+        return state, sec, {
+            "s": sec, "alloc_retries": torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - r0, "clocks": clocks()}
+
+    secs, untraced = [], []
+    for _ in range(steps):
+        state, sec, info = one_step(state)
+        secs.append(sec)
+        untraced.append(info)
+    traced = []
+    for _ in range(traced_steps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, wall, info = one_step(state)
+        traced.append((prof, wall, info))
     data.close()
-    by_kernel, spans = {}, []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            n, c = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (n + us, c + 1)
-            spans.append((e.time_range.start, e.time_range.end))
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):  # the union of the kernels' intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    per_traced = []
+    for prof, wall, info in traced:
+        kern, spans = kernels(prof)
+        per_traced.append(dict(info, device_kernel_ms=sum(
+            us for us, _ in kern.values()) / 1e3,
+            device_busy_ms=busy_us(spans) / 1e3,
+            busy_share=busy_us(spans) / 1e6 / wall))
+    prof, wall, _ = traced[-1]
+    by_kernel, spans = kernels(prof)
+    busy = busy_us(spans)
     total = sum(us for us, _ in by_kernel.values())
     groups = {}
     for name, (us, _) in by_kernel.items():
@@ -166,6 +214,9 @@ def train_step(cs, dev, steps: int, arch: str):
     tokens = spec["batch"] * spec["seq"]
     if cfg.rwkv is not None or cfg.ssm is not None:
         flops_tok = cs._recurrent_flops_per_token(cfg, state[0], spec["seq"])
+    elif cfg.encoder_decoder or cfg.n_vision_tokens:
+        flops_tok = cs._encdec_vision_flops_per_token(cfg, state[0],
+                                                      spec["seq"])
     else:
         n_mm = cfg.param_count() - cfg.padded_vocab * cfg.d_model
         flops_tok = 6 * n_mm + 6 * cfg.n_layers * spec["seq"] * cfg.d_model
@@ -174,6 +225,7 @@ def train_step(cs, dev, steps: int, arch: str):
             s_per_step=s_step, step_seconds=secs,
             tokens_per_s=tokens / s_step,
             mfu_vs_989_tflops=flops_tok * tokens / s_step / cs.PEAK_BF16_S,
+            untraced=untraced, traced=per_traced,
             traced_step_s=wall, device_kernel_ms=total / 1e3,
             device_busy_ms=busy / 1e3, busy_share=busy / 1e6 / wall,
             group_ms={g: us / 1e3 for g, us in sorted(groups.items())},
@@ -185,7 +237,7 @@ def train_step(cs, dev, steps: int, arch: str):
                   "share": us / total} for n, (us, c) in top])
 
 
-def turn(tree: Path, steps: int, arch: str):
+def turn(tree: Path, steps: int, arch: str, traced: int):
     """One tree's measurements (runs in its own process)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs  # puts this checkout's src/ first: undo it
@@ -201,7 +253,7 @@ def turn(tree: Path, steps: int, arch: str):
     if arch == cs.TRAIN["arch"]:
         backward(cs, dev)
         torch.cuda.empty_cache()
-    train_step(cs, dev, steps, arch)
+    train_step(cs, dev, steps, arch, traced)
 
 
 def main():
@@ -209,7 +261,9 @@ def main():
     p.add_argument("trees", nargs="+", type=Path,
                    help="roots of checkouts, each with src/repro_torch")
     p.add_argument("--steps", type=int, default=4,
-                   help="untraced steps before the traced one")
+                   help="untraced steps before the traced ones")
+    p.add_argument("--traced", type=int, default=1,
+                   help="steps traced, each in a profile of its own")
     p.add_argument("--arch", default="tinyllama-1.1b",
                    help="the arch whose step is profiled (full width and "
                         "depth)")
@@ -217,7 +271,7 @@ def main():
     a = p.parse_args()
     trees = [t.resolve() for t in a.trees]
     if a.turn:
-        turn(trees[0], a.steps, a.arch)
+        turn(trees[0], a.steps, a.arch, a.traced)
         return
     sys.path.insert(0, str(ROOT))
     import torch
@@ -229,7 +283,8 @@ def main():
            if k != "REPRO_TORCH_BUILD_DIR"}
     for tree in trees + trees[::-1]:
         subprocess.run([sys.executable, __file__, "--turn", str(tree),
-                        "--steps", str(a.steps), "--arch", a.arch],
+                        "--steps", str(a.steps), "--arch", a.arch,
+                        "--traced", str(a.traced)],
                        check=True, env=env)
 
 
