@@ -263,6 +263,28 @@ and prints no result):
               host copy of its state after step 3 ends bit for bit
               (every leaf's sha256). The kernels at its shapes are in
               phase train
+ 16. parallel the LM stack's parallelism as one NCCL rank (a world of
+              one, destroyed at the phase's end): tinyllama-1.1b at full
+              width and depth with phase train's recipe (8 x 4,096
+              tokens in 4 microbatches, AdamW, loss chunk 1,024) for 3
+              steps of `build_train_step` under
+              `make_ctx(make_local_mesh(1, 1), zero1=True, fsdp=True)`
+              (launch counts set to 0 just before and read just after:
+              176 / 88 attention a step) and 3 without a mesh, losses
+              and every param's sha256 bit-equal after each step; 3
+              under `remat="dots"` against the mesh-less "full" (step
+              1's loss and grad norm within 2e-2); s/step and peak
+              memory of each; one full-width layer under each remat
+              (the matrix products counted in its forward and
+              backward: "dots" recomputes none, "full" all; the bytes
+              held for the backward; card and host ms) and the whole
+              model's loss on one microbatch (memory held after the
+              forward, peak); the attention backward at MLA's (Dk 192,
+              Dv 128) at (1, 128/128, 4,096) and (1, 4/4, 77) against
+              autograd through the plain versions (2e-2, two calls
+              bit-equal, the mma.sync kernels; library: SDPA's
+              autograd). `--parallel-only` builds the kernels and runs
+              this phase alone
 
 Every line but the last is one JSON object (the card's nvidia-smi line
 excepted); a `seconds` line gives each phase's wall time; the last is
@@ -1638,31 +1660,51 @@ TRAIN_ULP_FACTOR = 10
 TRAIN_FAR_SHARE = 1e-3
 
 
-def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev, causal=True):
+def _plain_grads(q, k, v, do, causal, heads):
+    """Autograd through the plain version, `heads` query heads at a time
+    where the query and KV heads are equal in number (each head's
+    gradient is its own), so that MLA's 128 heads at 4,096 do not hold
+    ~40 GB of float32 scores at once."""
+    from repro_torch.kernels.flash_attention import ref
+    H = q.shape[1]
+    if not heads or heads >= H or k.shape[1] != H:
+        return ref.flash_attention_grads_plain(q, k, v, do, causal)
+    parts = [ref.flash_attention_grads_plain(
+        *(t[:, h:h + heads] for t in (q, k, v, do)), causal)
+        for h in range(0, H, heads)]
+    return tuple(torch.cat(g, 1) for g in zip(*parts))
+
+
+def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev, causal=True,
+                              Dv=None, heads=32):
     """The backward kernel (and the forward's row log-sum-exp), causal or
     not (an encoder's and a cross attention's), against autograd through
     the plain version in float32 on the same inputs: each gradient
     within ATTN_TOL of its largest |value|; two calls bit-equal; in bf16
-    at D 64 and 128 the kernels that ran are the wgmma ones, never the
-    mma.sync ones. The library call is autograd through PyTorch's fused
-    attention (its backward alone, on a kept graph)."""
+    at D = Dv 64 and 128 the kernels that ran are the wgmma ones, never
+    the mma.sync ones, and at MLA's (D 192, Dv 128) the mma.sync ones.
+    The plain version runs `heads` heads at a time where H = Hkv
+    (`_plain_grads`). The library call is autograd through PyTorch's
+    fused attention (its backward alone, on a kept graph)."""
     from repro_torch.kernels.flash_attention import ops, ref
     F = torch.nn.functional
+    Dv = D if Dv is None else Dv
     q = _randn((B, H, S, D), 11, dev, dtype)
     k = _randn((B, Hkv, S, D), 12, dev, dtype)
-    v = _randn((B, Hkv, S, D), 13, dev, dtype)
-    do = _randn((B, H, S, D), 14, dev, dtype)
+    v = _randn((B, Hkv, S, Dv), 13, dev, dtype)
+    do = _randn((B, H, S, Dv), 14, dev, dtype)
     out, lse = ops._forward(q, k, v, causal, True)
     got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal)
     lse_err = float((lse - ref.flash_attention_lse_plain(
         q, k, causal)).abs().max())
-    want = ref.flash_attention_grads_plain(
-        *(t.float() for t in (q, k, v, do)), causal)
+    want = _plain_grads(*(t.float() for t in (q, k, v, do)), causal, heads)
     errs = [float((g.float() - w).abs().max() / w.abs().max())
             for g, w in zip(got, want)]
     del want
     torch.cuda.synchronize()
-    what = (f"flash_attention_bwd at {(B, H, Hkv, S, D)} causal={causal} "
+    torch.cuda.empty_cache()
+    shape = (B, H, Hkv, S, D) if Dv == D else (B, H, Hkv, S, D, Dv)
+    what = (f"flash_attention_bwd at {shape} causal={causal} "
             f"{dtype}")
     if max(errs) > ATTN_TOL[dtype] or lse_err > 1e-3:
         raise AssertionError(f"{what}: errors {errs}, lse {lse_err}")
@@ -1671,12 +1713,14 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev, causal=True):
         raise AssertionError(f"{what}: two calls differ")
     del got, again
     esize = q.element_size()
-    # read q, O, dO, k, v and lse once; write dq, dk, dv once
-    nbytes = ((4 * B * H * S * D + 4 * B * Hkv * S * D) * esize
+    # read q, O, dO, k, v and lse once; write dq, dk, dv once (q, dq, k,
+    # dk at D; O, dO, v, dv at Dv)
+    nbytes = (2 * (B * H * S + B * Hkv * S) * (D + Dv) * esize
               + B * H * S * 4)
     # the (query, key) pairs the mask keeps
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    ops_n = 10 * D * pairs  # S, dP, dV, dK, dQ: a multiply and an add each
+    # S, dK, dQ over D and dP, dV over Dv: a multiply and an add each
+    ops_n = (6 * D + 4 * Dv) * pairs
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
     call = lambda: ops.flash_attention_bwd(  # noqa: E731
         q, k, v, out, do, lse, causal)
@@ -1685,23 +1729,28 @@ def check_flash_attention_bwd(B, H, Hkv, S, D, dtype, dev, causal=True):
                                              enable_gqa=True)
     lib = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, leaves, do, retain_graph=True)
-    # wgmma (bf16, D 64 / 128): prep, dK/dV, the group sum where
+    # wgmma (bf16, D = Dv 64 / 128): prep, dK/dV, the group sum where
     # Hkv < H, dQ; else delta, dK/dV, dQ
-    wgmma = dtype == torch.bfloat16 and D >= 64
+    wgmma = dtype == torch.bfloat16 and D == Dv and D >= 64
     expect = 3 + (wgmma and Hkv < H)
     dev_ms, per_call, names = device_profile(call, calls=5, expect=expect)
     old = [n for n in names if "dkdv_mma_kernel" in n or "dq_mma_kernel" in n]
     new = [n for n in names if "wgmma_kernel" in n]
     if wgmma and (old or len(new) != 2):
         raise AssertionError(f"{what}: ran {names}, not the wgmma kernels")
-    res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "causal": causal,
+    if D != Dv and (new or len(old) != 2):
+        raise AssertionError(f"{what}: ran {names}, not the mma.sync "
+                             f"kernels")
+    res = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
+           "causal": causal,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": max(errs),
            "errs_dq_dk_dv": errs, "lse_err": lse_err,
            "ms": time_ms(call, reps=5, batch=2),
            "kernel_device_ms": dev_ms, "device_kernels_per_call": per_call,
            "device_kernels": names, "device_ms_by_kernel": device_split(call),
-           "plain_ms": time_ms(lambda: ref.flash_attention_grads_plain(
-               q, k, v, do, causal), reps=3, batch=1, warmup=1),
+           "plain_ms": time_ms(lambda: _plain_grads(q, k, v, do, causal,
+                                                    heads),
+                               reps=3, batch=1, warmup=1),
            **bound(nbytes, ops_n, peak),
            "library_ms": time_ms(lib, reps=5, batch=2),
            "library_device_ms": device_ms(lib, calls=5)}
@@ -3272,6 +3321,295 @@ def encdec_vision_train_phase(smi: str, dev):
     return out
 
 
+#: phase parallel: tinyllama-1.1b at full width and depth, `train_4k`'s
+#: 4,096 tokens, 8 rows in 4 microbatches, AdamW, loss chunk 1,024
+TRAIN_PARALLEL = dict(arch="tinyllama-1.1b", seq=4096, batch=8,
+                      microbatches=4, loss_chunk=1024, steps=3)
+#: MLA's per-layer training attention (deepseek-v3-671b: 128 query and
+#: 128 KV heads, Dk 192, Dv 128, one row of 4,096, causal), and a small
+#: shape whose S is not a multiple of a tile
+MLA_BWD_SHAPES = ((1, 128, 128, 4096, 192, 128), (1, 4, 4, 77, 192, 128))
+
+
+def _nccl_world(dev):
+    """One NCCL rank of a world of one (the card's case: NCCL refuses two
+    ranks on one device) on a free localhost port."""
+    import torch.distributed as dist
+    from repro_torch.parallel.multihost import _free_port
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    return dist
+
+
+def _parallel_run(cfg, px, steps: int, dev, digest: bool):
+    """`steps` train steps of `cfg` from seed 0's weights under `px`
+    (build_train_step, this rank's blocks on a mesh) on SyntheticLM's
+    batches 0, 1, ...: per step the loss, grad norm, s and (with
+    `digest`) every param's sha256; the peak memory; the launches."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    spec = TRAIN_PARALLEL
+    shape = ShapeConfig("train", spec["seq"], spec["batch"], "train")
+    from repro_torch.optim.adamw import AdamWConfig
+    opt = AdamWConfig(warmup_steps=min(100, steps), total_steps=steps)
+    fn = st.build_train_step(cfg, shape, px, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=spec["seq"],
+                                  global_batch=spec["batch"], seed=0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = (params, st.opt_init(px)(params), lm.init_extras(cfg, dev))
+    del params
+    if px.mesh is not None:
+        state = (*st.shard_state(cfg, px, state[0], state[1]), state[2])
+    rows = []
+    kbuild.reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = fn(*state, data.batch_at(i))
+        m = {k: float(v) for k, v in m.items()}
+        rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "s": time.perf_counter() - t0})
+        if digest:
+            rows[-1]["sha256"] = _digests(state[0])
+    launches = kbuild.launches()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    return rows, peak, launches
+
+
+def _dots_probe(cfg, dev):
+    """What `remat="dots"` keeps, on the card, at phase parallel's
+    microbatch (TRAIN_PARALLEL's rows / microbatches x seq tokens):
+
+    - one full-width layer (`blocks.tf_block_fwd`) under each remat:
+      the matrix products (`lm.DOTS`) its forward and its backward run,
+      counted by a dispatch mode as `tests/test_torch_parallel.py`'s
+      `test_dots_keeps_the_products` counts them, and so the products
+      the backward recomputes (its count less "none"'s: "full" stops
+      once the backward has what it saved, so a last product whose
+      output nothing saved is not run again); the bytes the
+      forward leaves held for the backward; the forward's and the
+      backward's card ms and the host's ms to issue them;
+    - the whole model's loss on one microbatch (`lm.loss_fn`) under
+      "full" and "dots": the memory held at the end of the forward and
+      the peak of the forward and backward."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch import tree
+    from repro_torch.models import blocks, lm
+    spec = TRAIN_PARALLEL
+    rows, seq = spec["batch"] // spec["microbatches"], spec["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p_layer = blocks.init_tf_block(gen, cfg, False)
+    x0 = torch.randn(rows, seq, cfg.d_model, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    gy = torch.randn(x0.shape, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    seen = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in lm.DOTS:
+                seen.append(func)
+            return func(*args, **(kwargs or {}))
+
+    def body(pl, x):
+        return blocks.tf_block_fwd(pl, x, cfg=cfg, train=True)[0]
+
+    def fwd(remat):
+        pl = tree.tree_map(lambda t: t.detach().requires_grad_(), p_layer)
+        x = x0.detach().requires_grad_()
+        return pl, x, lm.remat_run(body, pl, x, train=True, remat=remat)
+
+    def bwd(pl, x, y):
+        return torch.autograd.grad(y, [x, *tree.leaves(pl)], gy)
+
+    layer = {}
+    for remat in ("none", "full", "dots"):
+        seen.clear()
+        with Count():
+            pl, x, y = fwd(remat)
+            n_fwd = len(seen)
+            bwd(pl, x, y)
+        n_bwd = len(seen) - n_fwd
+        del pl, x, y
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        pl, x, y = fwd(remat)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base - y.nbytes
+        del pl, x, y
+        f_ms, b_ms, fh_ms, bh_ms = [], [], [], []
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            t0 = time.perf_counter()
+            pl, x, y = fwd(remat)
+            t1 = time.perf_counter()
+            ev[1].record()
+            bwd(pl, x, y)
+            t2 = time.perf_counter()
+            ev[2].record()
+            torch.cuda.synchronize()
+            f_ms.append(ev[0].elapsed_time(ev[1]))
+            b_ms.append(ev[1].elapsed_time(ev[2]))
+            fh_ms.append(1e3 * (t1 - t0))
+            bh_ms.append(1e3 * (t2 - t1))
+            del pl, x, y
+        layer[remat] = {"products_fwd": n_fwd, "products_bwd": n_bwd,
+                        "held_bytes": held,
+                        "fwd_ms": statistics.median(f_ms[1:]),
+                        "bwd_ms": statistics.median(b_ms[1:]),
+                        "fwd_host_ms": statistics.median(fh_ms[1:]),
+                        "bwd_host_ms": statistics.median(bh_ms[1:])}
+    for remat in ("full", "dots"):
+        layer[remat]["recomputed"] = (layer[remat]["products_bwd"]
+                                      - layer["none"]["products_bwd"])
+    del p_layer, x0, gy
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    r = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                     generator=r, dtype=torch.int32
+                                     ).to(dev)}
+    extras = lm.init_extras(cfg, dev)
+    model = {}
+    for remat in ("full", "dots"):
+        preq = tree.tree_map(lambda t: t.detach().requires_grad_(), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = lm.loss_fn(preq, batch, extras, cfg,
+                             loss_chunk=spec["loss_chunk"], remat=remat)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, tree.leaves(preq))
+        torch.cuda.synchronize()
+        model[remat] = {"held_after_fwd": held,
+                        "peak_over_params": torch.cuda.max_memory_allocated()
+                        - base}
+        del preq, loss, grads
+    del params
+    torch.cuda.empty_cache()
+    return {"layer": layer, "model_microbatch": model}
+
+
+def check_mla_bwd(dev):
+    """The attention backward at MLA's (Dk 192, Dv 128) on the card
+    (`MLA_BWD_SHAPES`), through `check_flash_attention_bwd`."""
+    bf = torch.bfloat16
+    return [check_flash_attention_bwd(B, H, Hkv, S, D, bf, dev, Dv=Dv)
+            for B, H, Hkv, S, D, Dv in MLA_BWD_SHAPES]
+
+
+def parallel_phase(smi: str, dev):
+    """Phase parallel: the LM stack's parallelism on the card, as one
+    NCCL rank. tinyllama-1.1b at full width and depth (`TRAIN_PARALLEL`)
+    for 3 steps under `make_ctx(make_local_mesh(1, 1), zero1=True,
+    fsdp=True)` and 3 under `make_ctx(None)`: losses and every param's
+    sha256 bit-equal after each step; then `remat="dots"` against the
+    mesh-less `remat="full"` run (the same weights and batches): step
+    1's loss and grad norm within ATTN_TOL in bf16 of the larger; s/step
+    and peak memory of each. The attention backward at MLA's (192, 128)
+    (`check_mla_bwd`). Launches: the mesh run's, 176 / 88 attention a
+    step. Returns (the mesh run's launches, the backward's shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import TrainCtx
+    from repro_torch.parallel.ctx import make_ctx
+    spec = TRAIN_PARALLEL
+    cfg = get_arch(spec["arch"])
+    knobs = dict(num_microbatches=spec["microbatches"],
+                 loss_chunk=spec["loss_chunk"])
+    steps = spec["steps"]
+    dist = _nccl_world(dev)
+    try:
+        mesh = make_local_mesh(1, 1)
+        px = make_ctx(mesh, zero1=True, fsdp=True, **knobs)
+        if not px.distributed or dist.get_backend() != "nccl":
+            raise AssertionError("parallel: the mesh is not an NCCL rank")
+        t0 = time.perf_counter()
+        on_mesh, peak_mesh, launches = _parallel_run(cfg, px, steps, dev,
+                                                     True)
+        t_mesh = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    plain, peak_plain, _ = _parallel_run(cfg, TrainCtx(**knobs), steps, dev,
+                                         True)
+    t_plain = time.perf_counter() - t0
+    dots, peak_dots, _ = _parallel_run(
+        cfg, TrainCtx(remat="dots", **knobs), steps, dev, False)
+    probe = _dots_probe(cfg, dev)
+    bit_equal = [a["loss"] == b["loss"] and a["sha256"] == b["sha256"]
+                 for a, b in zip(on_mesh, plain)]
+    tol = ATTN_TOL[torch.bfloat16]
+    dots_gap = {k: abs(dots[0][k] - plain[0][k]) / max(abs(dots[0][k]),
+                                                      abs(plain[0][k]))
+                for k in ("loss", "grad_norm")}
+
+    def s_step(rows):
+        return statistics.median(r["s"] for r in rows[1:])
+
+    shapes = check_mla_bwd(dev)
+    mb = spec["microbatches"]
+    want = {"flash_attention": 2 * cfg.n_layers * mb,
+            "flash_attention_bwd": cfg.n_layers * mb}
+    out = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           **{k: spec[k] for k in ("seq", "batch", "microbatches",
+                                   "loss_chunk", "steps")},
+           "mesh": {"shape": dict(mesh.shape), "backend": "nccl",
+                    "zero1": True, "fsdp": True},
+           "bit_equal_by_step": bit_equal,
+           "losses": {"mesh": [r["loss"] for r in on_mesh],
+                      "none": [r["loss"] for r in plain],
+                      "dots": [r["loss"] for r in dots]},
+           "grad_norms": {"none": [r["grad_norm"] for r in plain],
+                          "dots": [r["grad_norm"] for r in dots]},
+           "dots_vs_full_step1": dots_gap,
+           "dots_bit_equal_step1": dots[0]["loss"] == plain[0]["loss"]
+           and dots[0]["grad_norm"] == plain[0]["grad_norm"],
+           "s_per_step": {"mesh": s_step(on_mesh), "none": s_step(plain),
+                          "dots": s_step(dots)},
+           "step_seconds": {"mesh": [r["s"] for r in on_mesh],
+                            "none": [r["s"] for r in plain],
+                            "dots": [r["s"] for r in dots]},
+           "max_memory_allocated": {"mesh": peak_mesh, "none": peak_plain,
+                                    "dots": peak_dots},
+           "run_seconds": {"mesh": t_mesh, "none": t_plain},
+           "launches_per_step": {k: n / steps for k, n in launches.items()
+                                 if n},
+           "dots_probe": probe,
+           "mla_bwd": shapes}
+    emit(phase="parallel", **out)
+    if any(launches[k] != n * steps for k, n in want.items()):
+        raise AssertionError(f"parallel: launched {launches}, want {want} "
+                             f"a step")
+    if not all(bit_equal):
+        raise AssertionError(f"parallel: the 1-rank mesh's steps differ "
+                             f"from the mesh-less ones: {bit_equal}")
+    if max(dots_gap.values()) > tol:
+        raise AssertionError(f"parallel: remat dots against full at step "
+                             f"1: {dots_gap}")
+    lay = probe["layer"]
+    # "full" stops recomputing once the backward has what it saved, so
+    # a last product whose output nothing saved is not run again
+    if lay["dots"]["recomputed"] != 0 or lay["full"]["recomputed"] <= 0 \
+            or lay["dots"]["products_fwd"] == 0:
+        raise AssertionError(f"parallel: remat dots recomputes a matrix "
+                             f"product, or full does not: {lay}")
+    if not _finite(on_mesh + plain + dots):
+        raise AssertionError("parallel: a non-finite loss or grad norm")
+    return launches, shapes
+
+
 def run_engine(cfg, dev, seed=0):
     from repro_torch.core import Engine
     torch.cuda.synchronize()
@@ -4652,6 +4990,9 @@ def main():
     p.add_argument("--profile-serve", type=int, default=0, metavar="STEPS",
                    help="trace the serve phase's prefill and STEPS decode "
                         "steps instead")
+    p.add_argument("--parallel-only", action="store_true",
+                   help="build the kernels and run phase parallel alone "
+                        "(no result line)")
     p.add_argument("--profile-arch", default="",
                    help="with --profile-serve: this arch at full width "
                         "and depth instead (e.g. rwkv6-1.6b)")
@@ -4675,6 +5016,9 @@ def main():
         return
     if a.profile_serve:
         profile_serve(a.profile_serve, dev, a.profile_arch)
+        return
+    if a.parallel_only:
+        parallel_phase(smi, dev)
         return
     seconds = {}
 
@@ -4762,6 +5106,7 @@ def main():
                           a.gen, smi, dev)
     encdec_vision_train = timed("encdec_vision_train",
                                 encdec_vision_train_phase, smi, dev)
+    parallel_launches, mla_bwd = timed("parallel", parallel_phase, smi, dev)
     emit(phase="seconds", **seconds)
     launches.update(served["launches"])
     src = "src/repro_torch/kernels/"
@@ -4852,6 +5197,7 @@ def main():
             **family_launches(stem),
             "train_launches": train_launches.get(stem, 0),
             "train_moe_launches": moe_launches.get(stem, 0),
+            "parallel_launches": parallel_launches.get(stem, 0),
             **measured(main_shape),
             "shapes": shapes[k] + train_shapes.get(f"{k}_g7", [])
             + train_shapes.get(f"{k}_train", [])})
@@ -4861,7 +5207,9 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[stem],
             **measured(main_shape), **family_launches(stem),
-            "shapes": train_shapes[k]})
+            "parallel_launches": parallel_launches.get(stem, 0),
+            "shapes": train_shapes[k]
+            + (mla_bwd if k == "flash_attention_bwd" else [])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -77,12 +77,20 @@
 // dP^T of 32-query tiles without a spill. The launch refuses a build
 // whose pool falls short, which would otherwise never start.
 //
-// bfloat16, D 16 and 32 (the smoke configs' heads only): the wgmma
-// tiling wants 64-column swizzled boxes, so these keep mma.sync m16n8k16
-// with synchronously staged tiles: delta by one warp a row; dK, dV by
-// one block per (b, KV head, 64-key tile) looping over the group's heads
-// and the 32-query tiles that see the keys (the group summed in
-// registers); dQ by one block per (b, head, 64-query tile).
+// bfloat16, D 16 and 32 (the smoke configs' heads only) and MLA's
+// (Dk 192, Dv 128): the wgmma tiling wants 64-column swizzled boxes and
+// one head dim, so these keep mma.sync m16n8k16 with synchronously
+// staged tiles, templated on <DK, DV>: delta = rowsum(dO * O) over Dv by
+// one warp a row; dK (DK columns), dV (DV columns) by one block per (b,
+// KV head, 64-key tile) looping over the group's heads and the 32-query
+// tiles that see the keys (the group summed in registers), S^T over DK
+// and dP^T over DV; dQ (DK columns) by one block per (b, head, 64-query
+// tile). At (192, 128) a thread holds 160 dK/dV accumulators, and dQ's
+// block reads its Q and dO fragments from shared memory each key tile
+// instead of keeping them in registers. MLA's query and key heads are
+// equal in number (128 and 128), so no group sum arises there. This
+// path is simple and right, not fast: PERF.md times it against its
+// bound.
 //
 // float32: mma would round the inputs to tf32, so the float32 kernels
 // stay on scalar FMAs from shared memory (32-key and 32-query tiles,
@@ -399,9 +407,11 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+// K (or Q) and V (or dO) tiles of KT rows, and the inner tiles of QT
+// rows, at head dims DK and DV
+template <int DK, int DV>
 constexpr int mma_smem_bytes() {
-  return (2 * KT + 2 * QT) * (D + 8) *
+  return (KT + QT) * (DK + 8 + DV + 8) *
              static_cast<int>(sizeof(__nv_bfloat16)) +
          2 * KT * static_cast<int>(sizeof(float));
 }
@@ -438,7 +448,7 @@ __device__ __forceinline__ void mma_pv(float acc[D / 8][4],
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -449,13 +459,14 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ dk,
                 __nv_bfloat16* __restrict__ dv, int H, int Hkv, int S,
                 int Skv, int causal, float scale) {
-  constexpr int DS = D + 8, KC = D / 16, ND = D / 8;
+  constexpr int DSK = DK + 8, DSV = DV + 8;
+  constexpr int KCK = DK / 16, KCV = DV / 16, NDK = DK / 8, NDV = DV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + KT * DS;
-  __nv_bfloat16* q_s = v_s + KT * DS;
-  __nv_bfloat16* do_s = q_s + QT * DS;
-  float* lse_s = reinterpret_cast<float*>(do_s + QT * DS);
+  __nv_bfloat16* v_s = k_s + KT * DSK;
+  __nv_bfloat16* q_s = v_s + KT * DSV;
+  __nv_bfloat16* do_s = q_s + QT * DSK;
+  float* lse_s = reinterpret_cast<float*>(do_s + QT * DSV);
   float* dl_s = lse_s + QT;
 
   const int kt = blockIdx.x, bkv = blockIdx.y;
@@ -464,15 +475,19 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;  // this lane's keys: r0, r0 + 8
   const int kpos0 = kt * KT + r0, kpos1 = kpos0 + 8;
-  stage_bf16<D, KT>(k_s, k + static_cast<int64_t>(bkv) * Skv * D, kt * KT,
-                    Skv);
-  stage_bf16<D, KT>(v_s, v + static_cast<int64_t>(bkv) * Skv * D, kt * KT,
-                    Skv);
-  float dka[ND][4], dva[ND][4];
+  stage_bf16<DK, KT>(k_s, k + static_cast<int64_t>(bkv) * Skv * DK,
+                     kt * KT, Skv);
+  stage_bf16<DV, KT>(v_s, v + static_cast<int64_t>(bkv) * Skv * DV,
+                     kt * KT, Skv);
+  float dka[NDK][4], dva[NDV][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NDK; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NDV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[n][e] = 0.f;
 
   const int n_qt = (S + QT - 1) / QT;
   const int q0 = causal ? kt * KT / QT : 0;
@@ -480,10 +495,10 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int bh = b * H + hkv * G + gi;
     for (int qt = q0; qt < n_qt; ++qt) {
       __syncthreads();  // the previous tile is consumed (and K, V staged)
-      stage_bf16<D, QT>(q_s, q + static_cast<int64_t>(bh) * S * D, qt * QT,
-                        S);
-      stage_bf16<D, QT>(do_s, dout + static_cast<int64_t>(bh) * S * D,
-                        qt * QT, S);
+      stage_bf16<DK, QT>(q_s, q + static_cast<int64_t>(bh) * S * DK,
+                         qt * QT, S);
+      stage_bf16<DV, QT>(do_s, dout + static_cast<int64_t>(bh) * S * DV,
+                         qt * QT, S);
       if (threadIdx.x < QT) {
         const int qp = qt * QT + threadIdx.x;
         lse_s[threadIdx.x] = qp < S ? lse[static_cast<int64_t>(bh) * S + qp]
@@ -492,22 +507,30 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                    : 0.f;
       }
       __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
+      // S^T = K Q^T (over DK) and dP^T = V dO^T (over DV): 16 keys x 32
+      // queries a warp
       float st[4][4], dpt[4][4];
 #pragma unroll
       for (int nc = 0; nc < 4; ++nc)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[nc][e] = dpt[nc][e] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t ka[4], va[4];
-        frag_a<DS>(ka, k_s, r0, kc * 16, t);
-        frag_a<DS>(va, v_s, r0, kc * 16, t);
+      for (int kc = 0; kc < KCK; ++kc) {
+        uint32_t ka[4];
+        frag_a<DSK>(ka, k_s, r0, kc * 16, t);
 #pragma unroll
         for (int nc = 0; nc < 4; ++nc) {
-          const __nv_bfloat16* qp = q_s + (nc * 8 + g) * DS + kc * 16 + 2 * t;
-          const __nv_bfloat16* dp = do_s + (nc * 8 + g) * DS + kc * 16 + 2 * t;
+          const __nv_bfloat16* qp = q_s + (nc * 8 + g) * DSK + kc * 16 + 2 * t;
           mma_bf16(st[nc], ka, ld32(qp), ld32(qp + 8));
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < KCV; ++kc) {
+        uint32_t va[4];
+        frag_a<DSV>(va, v_s, r0, kc * 16, t);
+#pragma unroll
+        for (int nc = 0; nc < 4; ++nc) {
+          const __nv_bfloat16* dp = do_s + (nc * 8 + g) * DSV + kc * 16 + 2 * t;
           mma_bf16(dpt[nc], va, ld32(dp), ld32(dp + 8));
         }
       }
@@ -528,31 +551,35 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
       uint32_t pa[2][4];
       pack_a(pa, st);
-      mma_pv<D>(dva, pa, do_s, g, t);   // dV += P^T dO
+      mma_pv<DV>(dva, pa, do_s, g, t);  // dV += P^T dO
       pack_a(pa, dpt);
-      mma_pv<D>(dka, pa, q_s, g, t);    // dK += dS^T Q
+      mma_pv<DK>(dka, pa, q_s, g, t);   // dK += dS^T Q
     }
   }
   const int64_t base = static_cast<int64_t>(bkv) * Skv;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < NDK; ++n) {
     const int col = n * 8 + 2 * t;
-    if (kpos0 < Skv) {
-      const int64_t o = (base + kpos0) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) =
+    if (kpos0 < Skv)
+      *reinterpret_cast<uint32_t*>(dk + (base + kpos0) * DK + col) =
           pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[n][0], dva[n][1]);
-    }
-    if (kpos1 < Skv) {
-      const int64_t o = (base + kpos1) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) =
+    if (kpos1 < Skv)
+      *reinterpret_cast<uint32_t*>(dk + (base + kpos1) * DK + col) =
           pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[n][2], dva[n][3]);
-    }
+  }
+#pragma unroll
+  for (int n = 0; n < NDV; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (kpos0 < Skv)
+      *reinterpret_cast<uint32_t*>(dv + (base + kpos0) * DV + col) =
+          pack_bf16(dva[n][0], dva[n][1]);
+    if (kpos1 < Skv)
+      *reinterpret_cast<uint32_t*>(dv + (base + kpos1) * DV + col) =
+          pack_bf16(dva[n][2], dva[n][3]);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
@@ -561,12 +588,17 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const float* __restrict__ lse, const float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dq, int H, int Hkv, int S, int Skv,
               int causal, float scale) {
-  constexpr int DS = D + 8, KC = D / 16, ND = D / 8;
+  constexpr int DSK = DK + 8, DSV = DV + 8;
+  constexpr int KCK = DK / 16, KCV = DV / 16, NDK = DK / 8;
+  // the small heads keep their Q and dO fragments in registers; MLA's
+  // (192, 128) reads them from shared memory each key tile, beside dQ's
+  // 96 accumulators a thread
+  constexpr bool HOIST = DK + DV <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + KT * DS;
-  __nv_bfloat16* k_s = do_s + KT * DS;
-  __nv_bfloat16* v_s = k_s + QT * DS;
+  __nv_bfloat16* do_s = q_s + KT * DSK;
+  __nv_bfloat16* k_s = do_s + KT * DSV;
+  __nv_bfloat16* v_s = k_s + QT * DSK;
 
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -575,24 +607,27 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;  // this lane's queries: r0, r0 + 8
   const int qpos0 = qt * KT + r0, qpos1 = qpos0 + 8;
-  stage_bf16<D, KT>(q_s, q + static_cast<int64_t>(bh) * S * D, qt * KT, S);
-  stage_bf16<D, KT>(do_s, dout + static_cast<int64_t>(bh) * S * D, qt * KT,
-                    S);
+  stage_bf16<DK, KT>(q_s, q + static_cast<int64_t>(bh) * S * DK, qt * KT,
+                     S);
+  stage_bf16<DV, KT>(do_s, dout + static_cast<int64_t>(bh) * S * DV,
+                     qt * KT, S);
   const int64_t rb = static_cast<int64_t>(bh) * S;
   const float lse0 = qpos0 < S ? lse[rb + qpos0] : 0.f;
   const float lse1 = qpos1 < S ? lse[rb + qpos1] : 0.f;
   const float dl0 = qpos0 < S ? delta[rb + qpos0] : 0.f;
   const float dl1 = qpos1 < S ? delta[rb + qpos1] : 0.f;
   __syncthreads();
-  uint32_t qa[KC][4], da[KC][4];
+  uint32_t qa[HOIST ? KCK : 1][4], da[HOIST ? KCV : 1][4];
+  if constexpr (HOIST) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    frag_a<DS>(qa[kc], q_s, r0, kc * 16, t);
-    frag_a<DS>(da[kc], do_s, r0, kc * 16, t);
+    for (int kc = 0; kc < KCK; ++kc) frag_a<DSK>(qa[kc], q_s, r0, kc * 16, t);
+#pragma unroll
+    for (int kc = 0; kc < KCV; ++kc)
+      frag_a<DSV>(da[kc], do_s, r0, kc * 16, t);
   }
-  float dqa[ND][4];
+  float dqa[NDK][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NDK; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
 
@@ -600,25 +635,46 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) n_kt = min(n_kt, (qt * KT + KT - 1) / QT + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile is consumed
-    stage_bf16<D, QT>(k_s, k + static_cast<int64_t>(bkv) * Skv * D,
-                      kt * QT, Skv);
-    stage_bf16<D, QT>(v_s, v + static_cast<int64_t>(bkv) * Skv * D,
-                      kt * QT, Skv);
+    stage_bf16<DK, QT>(k_s, k + static_cast<int64_t>(bkv) * Skv * DK,
+                       kt * QT, Skv);
+    stage_bf16<DV, QT>(v_s, v + static_cast<int64_t>(bkv) * Skv * DV,
+                       kt * QT, Skv);
     __syncthreads();
-    // S = Q K^T and dP = dO V^T: 16 queries x 32 keys a warp
+    // S = Q K^T (over DK) and dP = dO V^T (over DV): 16 queries x 32
+    // keys a warp
     float sc[4][4], dp[4][4];
 #pragma unroll
     for (int nc = 0; nc < 4; ++nc)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nc][e] = dp[nc][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
+    for (int kc = 0; kc < KCK; ++kc) {
+      uint32_t a[4];
+      if constexpr (HOIST) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qa[kc][i];
+      } else {
+        frag_a<DSK>(a, q_s, r0, kc * 16, t);
+      }
 #pragma unroll
       for (int nc = 0; nc < 4; ++nc) {
-        const __nv_bfloat16* kp = k_s + (nc * 8 + g) * DS + kc * 16 + 2 * t;
-        const __nv_bfloat16* vp = v_s + (nc * 8 + g) * DS + kc * 16 + 2 * t;
-        mma_bf16(sc[nc], qa[kc], ld32(kp), ld32(kp + 8));
-        mma_bf16(dp[nc], da[kc], ld32(vp), ld32(vp + 8));
+        const __nv_bfloat16* kp = k_s + (nc * 8 + g) * DSK + kc * 16 + 2 * t;
+        mma_bf16(sc[nc], a, ld32(kp), ld32(kp + 8));
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < KCV; ++kc) {
+      uint32_t a[4];
+      if constexpr (HOIST) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = da[kc][i];
+      } else {
+        frag_a<DSV>(a, do_s, r0, kc * 16, t);
+      }
+#pragma unroll
+      for (int nc = 0; nc < 4; ++nc) {
+        const __nv_bfloat16* vp = v_s + (nc * 8 + g) * DSV + kc * 16 + 2 * t;
+        mma_bf16(dp[nc], a, ld32(vp), ld32(vp + 8));
       }
     }
 #pragma unroll
@@ -635,28 +691,28 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     uint32_t pa[2][4];
     pack_a(pa, sc);
-    mma_pv<D>(dqa, pa, k_s, g, t);  // dQ += dS K
+    mma_pv<DK>(dqa, pa, k_s, g, t);  // dQ += dS K
   }
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < NDK; ++n) {
     const int col = n * 8 + 2 * t;
     if (qpos0 < S)
-      *reinterpret_cast<uint32_t*>(dq + (rb + qpos0) * D + col) =
+      *reinterpret_cast<uint32_t*>(dq + (rb + qpos0) * DK + col) =
           pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
     if (qpos1 < S)
-      *reinterpret_cast<uint32_t*>(dq + (rb + qpos1) * D + col) =
+      *reinterpret_cast<uint32_t*>(dq + (rb + qpos1) * DK + col) =
           pack_bf16(dqa[n][2] * scale, dqa[n][3] * scale);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dq, void* dk, void* dv, int B, int H, int Hkv, int S,
                 int Skv, int causal, float scale, cudaStream_t s) {
-  constexpr int SM = mma_smem_bytes<D>();
-  auto kv = dkdv_mma_kernel<D>;
-  auto kq = dq_mma_kernel<D>;
+  constexpr int SM = mma_smem_bytes<DK, DV>();
+  auto kv = dkdv_mma_kernel<DK, DV>;
+  auto kq = dq_mma_kernel<DK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kv, cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
   if (e == cudaSuccess)
@@ -1333,8 +1389,8 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
       if (ws_floats < rows) return static_cast<int>(cudaErrorInvalidValue);
       const int e = launch_delta<__nv_bfloat16>(o, dout, ws, rows, D, s);
       if (e != 0) return e;
-      return launch_bf16<D>(q, k, v, dout, lse, ws, dq, dk, dv, B, H, Hkv,
-                            S, Skv, causal, scale, s);
+      return launch_bf16<D, D>(q, k, v, dout, lse, ws, dq, dk, dv, B, H,
+                               Hkv, S, Skv, causal, scale, s);
     }
   }
   if (ws_floats < rows) return static_cast<int>(cudaErrorInvalidValue);
@@ -1346,31 +1402,44 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, o, dout, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, Skv, D); lse:
-// float32 (B, H, S); ws: float32 scratch of ws_floats elements that the
-// launch fills (bf16 at D 64 / 128: 2 B H S' with S' = S rounded up to
-// 64, and 2 B H Skv D more when H != Hkv; else B H S); all contiguous,
-// one dtype (0 = float32, 1 = bfloat16; bf16 pointers 16-byte aligned).
-// D in {16, 32, 64, 128}; `scale` is the forward's.
+// q, dq: (B, H, S, D); o, dout: (B, H, S, Dv); k, dk: (B, Hkv, Skv, D);
+// v, dv: (B, Hkv, Skv, Dv); lse: float32 (B, H, S); ws: float32 scratch
+// of ws_floats elements that the launch fills (bf16 at D = Dv 64 / 128:
+// 2 B H S' with S' = S rounded up to 64, and 2 B H Skv D more when H !=
+// Hkv; else B H S); all contiguous, one dtype (0 = float32, 1 =
+// bfloat16; bf16 pointers 16-byte aligned). (D, Dv) is (d, d) for d in
+// {16, 32, 64, 128}, or MLA's (192, 128) in bfloat16; `scale` is the
+// forward's.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, int64_t ws_floats,
     void* dq, void* dk, void* dv, int B, int H, int Hkv, int S, int Skv,
-    int D, int causal, int dtype, float scale, void* stream) {
+    int D, int Dv, int causal, int dtype, float scale, void* stream) {
   if (B < 0 || Hkv <= 0 || H % Hkv || S < 0 || Skv <= 0 ||
       (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool mla = D == 192 && Dv == 128;
+  if (D != Dv && !(mla && dtype == 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
   if (S == 0) {  // no query sees a key: dk = dv = 0, dq is empty
-    const size_t n = static_cast<size_t>(B) * Hkv * Skv * D *
+    const size_t n = static_cast<size_t>(B) * Hkv * Skv *
                      (dtype == 1 ? 2 : 4);
-    cudaError_t e = cudaMemsetAsync(dk, 0, n, s);
-    if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, n, s);
+    cudaError_t e = cudaMemsetAsync(dk, 0, n * D, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, n * Dv, s);
     return static_cast<int>(e);
   }
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(ws);
+  if (mla) {  // MLA's pair on the mma.sync kernels: delta over Dv
+    const int64_t rows = static_cast<int64_t>(B) * H * S;
+    if (ws_floats < rows) return static_cast<int>(cudaErrorInvalidValue);
+    const int e = launch_delta<__nv_bfloat16>(o, dout, w, rows, Dv, s);
+    if (e != 0) return e;
+    return launch_bf16<192, 128>(q, k, v, dout, l, w, dq, dk, dv, B, H, Hkv,
+                                 S, Skv, causal, scale, s);
+  }
 #define FAB_CASE(DD)                                                         \
   case DD:                                                                   \
     return launch_d<DD>(q, k, v, o, dout, l, w, ws_floats, dq, dk, dv, B, H, \

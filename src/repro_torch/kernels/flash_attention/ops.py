@@ -9,11 +9,11 @@ TMA tensor maps of the forward and the backward are encoded on the host
 inside the launch. On a CPU tensor it runs the plain version (`ref.py`),
 and only then: there is no fallback from the card to the plain code.
 
-The head dims (Dk of q and k, Dv of v) the forward takes on the card are
-`PAIRS`: one head dim for all three, or MLA's (192, 128) in bfloat16.
-Any other pair raises `ValueError` naming it (the smoke configs' small
-head dims run on the CPU only: ROADMAP.md queue 2, item 2); a gradient
-at Dk != Dv raises `NotImplementedError` (queue 2, item 1).
+The head dims (Dk of q and k, Dv of v) the forward and the backward take
+on the card are `PAIRS`: one head dim for all three (16, 32, 64, 128),
+or MLA's (192, 128) in bfloat16. Any other pair raises `ValueError`
+naming it (the smoke configs' small head dims run on the CPU only:
+ROADMAP.md queue 2, item 2).
 
 A call that needs a gradient (grad mode on and q, k or v requiring one)
 goes through `FlashAttention`, a `torch.autograd.Function`: its forward
@@ -34,12 +34,9 @@ from repro_torch.kernels.flash_attention import ref
 
 #: head dims the kernels are compiled for with Dk = Dv
 HEAD_DIMS = (16, 32, 64, 128)
-#: the forward's (Dk, Dv) pairs: HEAD_DIMS, and MLA's in bfloat16 only
+#: the kernels' (Dk, Dv) pairs: HEAD_DIMS, and MLA's in bfloat16 only
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 BF16_ONLY = ((192, 128),)
-#: where the backward at Dk != Dv is queued
-LATER_BWD = ("ROADMAP.md queue 2, item 1 (the attention backward at "
-             "Dk 192, Dv 128)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,7 +50,7 @@ kernel = build.CudaKernel(
 bwd_kernel = build.CudaKernel(
     "flash_attention_bwd", "flash_attention_bwd_launch",
     [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _P, _P, _P, _I, _I, _I,
-     _I, _I, _I, _I, _I, ctypes.c_float],
+     _I, _I, _I, _I, _I, _I, ctypes.c_float],
     errors="flash_attention_bwd_error_string")
 
 
@@ -84,13 +81,6 @@ def _check(q, k, v):
     return B, H, Hkv, S, Skv, D, Dv
 
 
-def _no_grad_at(Dk: int, Dv: int) -> None:
-    if Dk != Dv:
-        raise NotImplementedError(
-            f"flash_attention: no backward kernel at head dims (Dk {Dk}, "
-            f"Dv {Dv}) yet; see {LATER_BWD}")
-
-
 def _forward(q, k, v, causal: bool, with_lse: bool):
     """(out (B, H, S, Dv), lse or None) by one forward launch."""
     B, H, Hkv, S, Skv, D, Dv = _check(q, k, v)
@@ -103,32 +93,34 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     return out, lse
 
 
-def bwd_workspace(B, H, Hkv, S, Skv, D, dtype) -> int:
+def bwd_workspace(B, H, Hkv, S, Skv, D, dtype, Dv=None) -> int:
     """float32 elements of the backward's scratch (the C entry refuses
-    less). bf16 at D 64 / 128 (the wgmma path): lse log2(e) and delta in
-    rows of S rounded up to 64, and, where a KV head serves several query
-    heads, every query head's float32 dk and dv partials; the other
-    paths: delta."""
-    if dtype == torch.bfloat16 and D >= 64:
+    less). bf16 at D = Dv 64 / 128 (the wgmma path): lse log2(e) and
+    delta in rows of S rounded up to 64, and, where a KV head serves
+    several query heads, every query head's float32 dk partials (D
+    columns) and dv partials (Dv columns); the other paths, MLA's (192,
+    128) among them: delta."""
+    Dv = D if Dv is None else Dv
+    if dtype == torch.bfloat16 and D == Dv and D >= 64:
         n = 2 * B * H * (-(-S // 64) * 64)
-        return n + (2 * B * H * Skv * D if H != Hkv else 0)
+        return n + (B * H * Skv * (D + Dv) if H != Hkv else 0)
     return B * H * S
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
     """Gradients (dq, dk, dv) of `flash_attention(q, k, v, causal)` for
     the output gradient `dout`, from the forward's `out` and row
-    log-sum-exp `lse` (B, H, S) float32. dk and dv are (B, Hkv, Skv, D):
-    the group's query heads are summed in head order. One call is one
-    launch of the C entry: in bf16 at D 64 / 128 four kernels (the row
-    sums, dk/dv per query head, the group sum where Hkv < H, dq), else
-    three (the row sums, dk/dv per KV head, dq); every output written
-    once (no atomics: the result is the same in every run)."""
+    log-sum-exp `lse` (B, H, S) float32. dq is q's shape, dk k's (B,
+    Hkv, Skv, Dk) and dv v's (B, Hkv, Skv, Dv): the group's query heads
+    are summed in head order. One call is one launch of the C entry: in
+    bf16 at D 64 / 128 four kernels (the row sums, dk/dv per query head,
+    the group sum where Hkv < H, dq), else three (the row sums over Dv,
+    dk/dv per KV head, dq); every output written once (no atomics: the
+    result is the same in every run)."""
     B, H, Hkv, S, Skv, D, Dv = _check(q, k, v)
-    _no_grad_at(D, Dv)
     dev = q.device
-    check("out", out, (q.dtype,), (B, H, S, D), dev)
-    check("dout", dout, (q.dtype,), (B, H, S, D), dev)
+    check("out", out, (q.dtype,), (B, H, S, Dv), dev)
+    check("dout", dout, (q.dtype,), (B, H, S, Dv), dev)
     check("lse", lse, (torch.float32,), (B, H, S), dev)
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v, out, dout)):
@@ -136,12 +128,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
                          "tiles by TMA or 16-byte loads, which need "
                          "16-byte aligned tensors")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    n_ws = bwd_workspace(B, H, Hkv, S, Skv, D, q.dtype)
+    n_ws = bwd_workspace(B, H, Hkv, S, Skv, D, q.dtype, Dv)
     ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
     bwd_kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                       ws.data_ptr(), n_ws, dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), B, H, Hkv, S, Skv, D, int(causal),
+                      dv.data_ptr(), B, H, Hkv, S, Skv, D, Dv, int(causal),
                       DTYPES[q.dtype], D ** -0.5)
     return dq, dk, dv
 
@@ -152,7 +144,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        _no_grad_at(q.shape[-1], v.shape[-1])
         out, lse = _forward(q, k, v, causal, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -175,7 +166,7 @@ def flash_attention(q, k, v, causal: bool = True):
     Hkv dividing H: query head h reads KV head h // (H // Hkv), so
     grouped K/V is passed unexpanded. One dtype, float32 or bfloat16.
     Returns (B, H, S, Dv), differentiable when the inputs need a
-    gradient (on the card at Dk = Dv only)."""
+    gradient."""
     if q.device.type == "cpu":
         return ref.flash_attention_plain(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -39,21 +39,23 @@ def init_tf_block(gen, cfg, moe_layer: bool):
     return p
 
 
-def _ffn(p, xm, cfg, router_bias, placement, train=False):
+def _ffn(p, xm, cfg, router_bias, placement, train=False, px=None,
+         batch_entry=None):
     if "moe" in p:
         return moe_mod.moe_fwd(p["moe"], xm, m=cfg.moe,
                                router_bias=router_bias, placement=placement,
-                               train=train)
+                               train=train, px=px, batch_entry=batch_entry)
     return mlp_fwd(p["mlp"], xm), {}
 
 
 def tf_block_fwd(p, x, *, cfg, router_bias=None, placement=None,
-                 return_kv=False, train=False):
+                 return_kv=False, train=False, px=None, batch_entry=None):
     """Full-sequence causal block (train / prefill). Returns (x,
     kv_or_None, metrics): kv is GQA's (k, v), or MLA's latent cache
     lines. With `train` an MoE layer adds its aux loss to the metrics;
     attention is differentiable whenever its inputs need a gradient (the
-    kernel wrapper's autograd function)."""
+    kernel wrapper's autograd function). `px` and `batch_entry` (the
+    spec entry of the rows x holds) set the MoE dispatch groups."""
     xa = rmsnorm(p["ln1"], x, cfg.norm_eps)
     kv = None
     if cfg.mla is not None:
@@ -66,7 +68,7 @@ def tf_block_fwd(p, x, *, cfg, router_bias=None, placement=None,
         y = out
     x = x + y
     y2, metrics = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                       router_bias, placement, train)
+                       router_bias, placement, train, px, batch_entry)
     return x + y2, kv, metrics
 
 

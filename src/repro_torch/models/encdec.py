@@ -28,9 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (COMPUTE_DT, _init, embed_fwd,
                                        init_embed, init_mlp, init_rmsnorm,
-                                       lm_head_fwd, mlp_fwd, rmsnorm,
-                                       softmax_xent)
-from repro_torch.models.lm import REMATS, _init_stack, layer
+                                       lm_head_fwd, mlp_fwd, rmsnorm)
+from repro_torch.models.lm import REMATS, _init_stack, layer, masked_xent
 
 FRAME_DIM = 1024  # stub frontend output dim
 
@@ -76,13 +75,14 @@ def init_encdec(gen: torch.Generator, cfg) -> Dict[str, Any]:
 
 
 def _runner(train: bool, remat: str):
-    """fn(*args), under `torch.utils.checkpoint` when training with
-    `remat="full"`."""
+    """fn(*args), under `torch.utils.checkpoint` when training with a
+    `remat` other than "none": as the reference's, the encoder-decoder
+    checkpoints whole blocks, so "dots" behaves as "full"."""
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r} not in {REMATS}")
 
     def run(fn, *args):
-        if train and remat == "full":
+        if train and remat != "none":
             return checkpoint(fn, *args, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(*args)
@@ -138,12 +138,14 @@ def _enc_cross_kv(p_layer, enc_out, cfg):
 
 
 def encdec_loss(params, batch, extras, cfg, *, loss_chunk: int = 0,
-                remat: str = "full"):
+                remat: str = "full", px=None, batch_entry=None):
     """Next-token cross-entropy of the decoder over batch["tokens"] (B,
     S), given the source batch["frames"], masked by `loss_mask` when the
     batch has one. As the reference's, it builds the full (B, S, V)
     logits: `loss_chunk` is taken for the train step's interface and not
-    used. Returns (loss, {"xent": loss})."""
+    used. On a distributed mesh (`px`) the batch is this rank's rows
+    (`batch_entry`) and the loss its share (`lm.masked_xent`). Returns
+    (loss, {"xent": loss})."""
     del extras, loss_chunk
     frames, tokens = batch["frames"], batch["tokens"]
     run = _runner(True, remat)
@@ -157,10 +159,12 @@ def encdec_loss(params, batch, extras, cfg, *, loss_chunk: int = 0,
     for i in range(cfg.n_layers):
         x = run(body, layer(params["dec_layers"], i), x, enc_out)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_head_fwd(params["embed"], x)
     mask = batch.get("loss_mask")
-    loss = softmax_xent(logits[:, :-1], tokens[:, 1:],
-                        mask[:, 1:] if mask is not None else None)
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    loss = masked_xent(x, params["embed"], tokens[:, 1:], mask[:, 1:], 0,
+                       px, batch_entry)
     return loss, {"xent": loss}
 
 

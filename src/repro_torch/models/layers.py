@@ -6,9 +6,9 @@ consumes it. Params are stored bf16; norms and softmax compute in
 float32.
 
 REPRO_FORCE_F32=1 switches params and compute to float32 (same shapes),
-read once at import as the reference reads it. On one device every
-sharding constraint of the reference is a no-op, so there is no
-ParallelCtx here.
+read once at import as the reference reads it. The reference's
+sharding constraints have no counterpart: under a mesh the train step
+lays the blocks out (`parallel/sharding.py`).
 """
 from __future__ import annotations
 
@@ -23,7 +23,11 @@ COMPUTE_DT = torch.float32 if _FORCE_F32 else torch.bfloat16
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=PARAM_DT):
     """Normal(0, 1) * scale (default fan_in ** -0.5, fan_in = shape[-2]
-    or the only dim), cast to `dtype`, drawn on `gen`'s device."""
+    or the only dim), cast to `dtype`, drawn on `gen`'s device. On the
+    `meta` device (`launch.steps.MetaGen`) nothing is drawn: the leaf
+    has a shape and a dtype only."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,

@@ -7,9 +7,12 @@ Layers are stacked (L, ...) as in the reference and driven by a Python
 loop over layers where the reference uses `lax.scan`; training with
 `remat="full"` recomputes each block in the backward pass
 (`torch.utils.checkpoint`, the reference's `jax.checkpoint` of the scan
-body). With `first_k_dense` the leading dense layers are a stack of
-their own, `dense_layers`, run before the MoE stack `layers`; the
-router bias and the placement index the MoE stack only. A config with
+body), and `remat="dots"` keeps each block's matrix products and
+recomputes the rest (selective checkpointing, the reference's
+`checkpoint_dots` policy). With `first_k_dense` the leading dense
+layers are a stack of their own, `dense_layers`, run before the MoE
+stack `layers`; the router bias and the placement index the MoE stack
+only. A config with
 `mtp_depth` has the multi-token-prediction head `mtp`, which only the
 loss runs. Caches are ``{"main": {"k", "v"}}`` of shape (L, B, Smax,
 Hkv, Dh), or for MLA ``{"dense": (Ld, B, Smax, r + rope), "main": (L,
@@ -27,28 +30,57 @@ loss, prefill and decode.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.tree import tree_map
 from repro_torch.models import blocks
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as r6
-from repro_torch.models.layers import (COMPUTE_DT, _init, chunked_xent,
-                                       embed_fwd, init_embed, init_rmsnorm,
-                                       lm_head_fwd, rmsnorm, softmax_xent)
+from repro_torch.models.layers import (COMPUTE_DT, _init, _nll,
+                                       chunked_xent, embed_fwd, init_embed,
+                                       init_rmsnorm, lm_head_fwd, rmsnorm)
 
 MTP_WEIGHT = 0.3
 MOE_AUX_WEIGHT = 1e-2
-#: the reference's remat policies; "dots" (save the matmuls' outputs)
-#: has no counterpart here yet
-REMATS = ("none", "full")
+#: the reference's remat policies
+REMATS = ("none", "full", "dots")
+#: the operators whose outputs "dots" keeps: the matrix products
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+        torch.ops.aten.addmm.default, torch.ops.aten.linear.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
+def remat_run(fn, *args, train: bool, remat: str):
+    """fn(*args) as a training step runs a block under `remat`: "full"
+    keeps only the inputs and recomputes the block in the backward,
+    "dots" keeps the matrix products' outputs too (the kernels'
+    autograd functions and everything else are recomputed, as
+    `checkpoint_dots` recomputes a Pallas call), "none" keeps all."""
+    if train and remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    if train and remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=_dots_context)
+    return fn(*args)
 
 
 def layer(stack, i: int):
-    """Layer i of a stacked (L, ...) parameter or cache tree (views)."""
+    """Layer i of a stacked (L, ...) parameter or cache tree (views; on
+    a mesh, `parallel.sharding.StackedUse` gathers the layer here)."""
     return tree_map(lambda t: t[i], stack)
 
 
@@ -158,19 +190,17 @@ def _embed_inputs(params, batch, cfg):
 
 
 def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
-                 remat: str = "full", collect_cache: bool = False):
+                 remat: str = "full", collect_cache: bool = False,
+                 px=None, batch_entry=None):
     """Returns (h, cache_or_None, metrics). With `train` each MoE layer
-    reports its aux loss (their mean is `moe_aux_loss`), and under
-    `remat="full"` each block runs under `torch.utils.checkpoint`: only
-    its input is kept, and the backward recomputes the rest."""
+    reports its aux loss (their mean is `moe_aux_loss`), and each block
+    runs under `remat_run`. `px` and `batch_entry` (the spec entry of
+    the rows x holds) set the MoE dispatch groups."""
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r} not in {REMATS}")
 
     def run(fn, *args):
-        if train and remat == "full":
-            return checkpoint(fn, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        return fn(*args)
+        return remat_run(fn, *args, train=train, remat=remat)
 
     if cfg.rwkv is not None or cfg.ssm is not None:
         recurrent = _rwkv_backbone if cfg.rwkv is not None else \
@@ -185,7 +215,8 @@ def backbone_fwd(params, x, cfg, extras, *, train: bool = False,
             layer(stack, i), xc, cfg=cfg,
             router_bias=extras["router_bias"][i] if moe else None,
             placement=extras["placement"][i] if moe else None,
-            return_kv=collect_cache, train=train)
+            return_kv=collect_cache, train=train, px=px,
+            batch_entry=batch_entry)
 
     for name, n, moe in stacks(cfg):
         stack, kvs = params[STACK_PARAMS[name]], []
@@ -305,29 +336,48 @@ def _hybrid_backbone(params, x, cfg, run, collect_cache):
 # ---------------------------------------------------------------------------
 
 
+def masked_xent(h, p_embed, labels, mask, loss_chunk: int = 0, px=None,
+                batch_entry=None):
+    """sum(mask * nll) / max(sum(mask), 1) of the LM head on h (B, S, d)
+    at positions :-1 against labels and mask (B, S - 1), over the
+    microbatch's rows: on a distributed mesh h holds this rank's rows
+    (`batch_entry`) and the count is summed over the rows' ranks, so the
+    ranks' terms add up to the loss. `loss_chunk` > 0 takes the
+    sequence-chunked cross-entropy."""
+    if loss_chunk:
+        tot, cnt = chunked_xent(h[:, :-1], p_embed, labels, mask,
+                                loss_chunk)
+    else:
+        mask = mask.float()
+        logits = lm_head_fwd(p_embed, h)
+        tot = (_nll(logits[:, :-1], labels) * mask).sum()
+        cnt = mask.sum()
+    if px is not None:
+        cnt = px.row_sum(cnt, batch_entry)
+    return tot / cnt.clamp(min=1.0)
+
+
 def loss_fn(params, batch, extras, cfg, *, loss_chunk: int = 0,
-            remat: str = "full"):
+            remat: str = "full", px=None, batch_entry=None):
     """Next-token cross-entropy (masked by `loss_mask` when the batch has
     one), plus MTP_WEIGHT x the multi-token-prediction loss where the
     config has an MTP head, plus MOE_AUX_WEIGHT x the MoE aux loss.
     `loss_chunk` > 0 takes the sequence-chunked cross-entropy; `remat`
-    as `backbone_fwd`. Returns (loss, metrics)."""
+    as `backbone_fwd`. On a distributed mesh (`px`) the batch is this
+    rank's rows (`batch_entry`) and the loss and metrics are its shares
+    of the microbatch's (`masked_xent`). Returns (loss, metrics)."""
     tokens = batch["tokens"]
     x = _embed_inputs(params, batch, cfg)
     h, _, metrics = backbone_fwd(params, x, cfg, extras, train=True,
-                                 remat=remat)
+                                 remat=remat, px=px,
+                                 batch_entry=batch_entry)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
-    if loss_chunk:
-        tot, cnt = chunked_xent(h[:, :-1], params["embed"], tokens[:, 1:],
-                                mask[:, 1:], loss_chunk)
-        loss = tot / cnt.clamp(min=1.0)
-    else:
-        logits = lm_head_fwd(params["embed"], h)
-        loss = softmax_xent(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+    loss = masked_xent(h, params["embed"], tokens[:, 1:],
+                       mask[:, 1:], loss_chunk, px, batch_entry)
     metrics["xent"] = loss
 
     if cfg.mtp_depth and "mtp" in params:
@@ -340,13 +390,8 @@ def loss_fn(params, batch, extras, cfg, *, loss_chunk: int = 0,
         hm = torch.einsum("bsd,de->bse", hin, mtp["proj"].to(COMPUTE_DT))
         hm, _, _ = blocks.tf_block_fwd(mtp["block"], hm, cfg=cfg,
                                        train=True)
-        if loss_chunk:
-            tot, cnt = chunked_xent(hm[:, :-1], params["embed"],
-                                    tokens[:, 2:], mask[:, 2:], loss_chunk)
-            mtp_loss = tot / cnt.clamp(min=1.0)
-        else:
-            lm2 = lm_head_fwd(params["embed"], hm)
-            mtp_loss = softmax_xent(lm2[:, :-1], tokens[:, 2:], mask[:, 2:])
+        mtp_loss = masked_xent(hm, params["embed"], tokens[:, 2:],
+                               mask[:, 2:], loss_chunk, px, batch_entry)
         metrics["mtp_loss"] = mtp_loss
         loss = loss + MTP_WEIGHT * mtp_loss
 

@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN with GAIA placement — the port of
-`repro.models.moe` for one device (one dispatch group).
+`repro.models.moe`, with the reference's dispatch groups (one per
+data-axis block of the batch, or one global group under `ep2d`).
 
 Dispatch is sort-based ("dropping" style): token/expert slots are ranked
 within their expert segment by a stable sort and slots beyond the static
@@ -99,42 +100,24 @@ class _Combine(torch.autograd.Function):
         return g_y[:ctx.n_slots], g_w, None
 
 
-def moe_fwd(p, x, *, m, router_bias=None, placement=None,
-            train: bool = False):
-    """x: (B, S, d). Returns (out, metrics) with `expert_counts` (E,),
-    `group_expert_counts` (1, E) and `moe_dropped`, as the reference
-    with one dispatch group; with `train` also `moe_aux_loss` (the
-    switch-style load-balance loss, differentiable in the router). The
-    dispatch and combine are autograd functions whose backward passes
-    sum in a fixed order.
-
-    router_bias: (E,) float32 selection-only bias.
-    placement: (E,) permutation: expert e is served by segment
-      placement[e] of the stored weights."""
-    B, S, D = x.shape
-    E, K = m.num_experts, m.top_k
-    T = B * S
-    xt = x.reshape(T, D)
-
-    logits = torch.matmul(xt.float(), p["router"])
-    gate = gate_ops.moe_gate(
-        logits, K, bias=None if router_bias is None else router_bias.detach(),
-        norm_topk=m.norm_topk_prob, prob_mean=train)
-    top_p, top_e, expert_counts = gate[:3]
-    top_p = top_p.to(COMPUTE_DT)
-    seg_e = top_e if placement is None else placement.long()[top_e.long()]
-
-    # ---- sort-based dispatch, one group --------------------------------
-    C = max(2 * K, _capacity(T, m))
+def _dispatch(p, xt, seg_e, top_p, E: int, K: int, C: int, offsets=None):
+    """One dispatch group: xt (Tg, D) tokens, seg_e (Tg, K) segment ids,
+    top_p (Tg, K) weights, capacity C. `offsets` (E,): the slots each
+    segment already holds from earlier tokens of the group on other
+    ranks (ep2d). Returns (out (Tg, D), counts by segment (E,),
+    dropped)."""
+    T, D = xt.shape
     flat_e = seg_e.reshape(T * K).long()
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    flat_t = torch.arange(T, device=xt.device).repeat_interleave(K)
     # stable, as the reference's jnp.argsort(..., stable=True): within a
     # segment the slots keep token order, so the same ones are dropped
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     counts = bincount(flat_e, E)  # per segment
     seg_start = (torch.cumsum(counts, 0) - counts).long()
-    pos_in_e = torch.arange(T * K, device=x.device) - seg_start[se]
+    pos_in_e = torch.arange(T * K, device=xt.device) - seg_start[se]
+    if offsets is not None:
+        pos_in_e = pos_in_e + offsets.long()[se]
     keep = pos_in_e < C
     dest = torch.where(keep, se * C + pos_in_e, E * C)
     # each (token, rank) slot's row in the buffer; E * C when dropped
@@ -159,19 +142,86 @@ def moe_fwd(p, x, *, m, router_bias=None, placement=None,
     # rank order and rounded once: the card's run is deterministic and
     # the placement cannot change a token's output.
     w = torch.where(slot_dest < E * C, top_p, torch.zeros_like(top_p))
-    out = _Combine.apply(y_flat, w, slot_dest).reshape(B, S, D)
+    out = _Combine.apply(y_flat, w, slot_dest)
+    return out, counts, (~keep).sum()
+
+
+def moe_fwd(p, x, *, m, router_bias=None, placement=None,
+            train: bool = False, px=None, batch_entry=None):
+    """x: (B, S, d). Returns (out, metrics) with `expert_counts` (E,),
+    `group_expert_counts` (G, E) and `moe_dropped`; with `train` also
+    `moe_aux_loss` (the switch-style load-balance loss, differentiable
+    in the router). The dispatch and combine are autograd functions
+    whose backward passes sum in a fixed order.
+
+    router_bias: (E,) float32 selection-only bias.
+    placement: (E,) permutation: expert e is served by segment
+      placement[e] of the stored weights.
+    px, batch_entry: the dispatch groups, as the reference's: G =
+      `px.axis_size(batch_entry)` groups of T / G tokens in batch order,
+      each with its own capacity and drops; under `px.ep2d`, when E
+      divides the joint axis, one global group. On a distributed mesh x
+      is this rank's rows (one group): the counts, the dropped slots and
+      the aux loss are this rank's shares, which the train step sums
+      over the rows' ranks; under ep2d the capacity positions start
+      after the earlier ranks' slots (an all-gather of the (E,)
+      counts)."""
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+
+    logits = torch.matmul(xt.float(), p["router"])
+    gate = gate_ops.moe_gate(
+        logits, K, bias=None if router_bias is None else router_bias.detach(),
+        norm_topk=m.norm_topk_prob, prob_mean=train)
+    top_p, top_e, expert_counts = gate[:3]
+    top_p = top_p.to(COMPUTE_DT)
+    seg_e = top_e if placement is None else placement.long()[top_e.long()]
+
+    # ---- sort-based dispatch in groups ------------------------------------
+    n_rows = px.axis_size(batch_entry) if px is not None else 1
+    live = px is not None and px.distributed and batch_entry is not None
+    T_all = T * n_rows if live else T  # the microbatch's tokens
+    use_2d = (px is not None and px.ep2d and px.ep_axes is not None
+              and E % px.axis_size(px.ep_axes) == 0)
+    offsets = None
+    if use_2d:
+        G, C = 1, max(2 * K, _capacity(T_all, m))
+        if live:  # the slots of the ranks holding earlier rows
+            mine = bincount(seg_e.reshape(-1).long(), E)
+            every = px.row_gather(mine, batch_entry)
+            offsets = every[:px.index(batch_entry)].sum(0)
+    else:
+        G = 1 if live else n_rows
+        C = max(2 * K, _capacity(T_all // n_rows, m))
+    Tg = T // G
+    outs, gcounts, dropped = [], [], []
+    for gi in range(G):
+        sl = slice(gi * Tg, (gi + 1) * Tg)
+        o, c, d = _dispatch(p, xt[sl], seg_e[sl], top_p[sl], E, K, C,
+                            offsets)
+        outs.append(o)
+        gcounts.append(c)
+        dropped.append(d)
+    out = (outs[0] if G == 1 else torch.cat(outs)).reshape(B, S, D)
 
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], x)
-    gcounts = counts if placement is None else counts[placement.long()]
+    gcounts = torch.stack(gcounts)  # (G, E) by segment
+    if placement is not None:  # by expert id
+        gcounts = gcounts[:, placement.long()]
     metrics = {
         "expert_counts": expert_counts,
-        "group_expert_counts": gcounts[None, :],
-        "moe_dropped": (~keep).sum(),
+        "group_expert_counts": gcounts,
+        "moe_dropped": dropped[0] if G == 1 else torch.stack(dropped).sum(),
     }
     if train:
         # switch-style load-balance loss: the token shares are
         # constants, the probability means carry the gradient
-        frac_tokens = expert_counts.float() / (T * K)
-        metrics["moe_aux_loss"] = E * torch.sum(frac_tokens * gate[3])
+        counts = px.row_sum(expert_counts, batch_entry) if live \
+            else expert_counts
+        frac_tokens = counts.float() / (T_all * K)
+        probs = gate[3] if T_all == T else gate[3] * (T / T_all)
+        metrics["moe_aux_loss"] = E * torch.sum(frac_tokens * probs)
     return out, metrics

@@ -66,9 +66,9 @@ def _second_moment(g, vr, vc, decay: float):
 
 
 def adafactor_apply(c: AdamWConfig, grads, state, params,
-                    decay: float = 0.999):
+                    decay: float = 0.999, gnorm=None):
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = clip_scale(c, gnorm)
     lr = lr_at(c, step)
 
@@ -110,11 +110,11 @@ def adafactor_lean_init(params):
 
 
 def adafactor_lean_apply(c: AdamWConfig, grads, state, params,
-                         decay: float = 0.999):
+                         decay: float = 0.999, gnorm=None):
     """The step number keys the rounding noise, so it is read on the
     host once a call."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = clip_scale(c, gnorm)
     lr = lr_at(c, step)
     base_key = trandom.fold_in(trandom.key(17), int(step))

@@ -1,6 +1,7 @@
 """AdamW with fp32 master weights, global-norm clipping and a linear
-warmup + cosine schedule — the port of `repro.optim.adamw` on one device
-(no ZeRO sharding: that belongs to the LM stack's parallelism).
+warmup + cosine schedule — the port of `repro.optim.adamw`. Under a
+mesh the train step hands it this rank's blocks and the whole
+gradient's norm (`launch/steps.py`).
 
 Trees are the port's nested dicts of tensors (`repro_torch.tree`),
 walked in the reference's order. The step count is a 0-d int32 tensor and
@@ -67,15 +68,17 @@ def clip_scale(c: AdamWConfig, gnorm):
     return torch.clamp(c.clip_norm / gnorm.clamp(min=1e-12), max=1.0)
 
 
-def adamw_apply(c: AdamWConfig, grads, state, params):
+def adamw_apply(c: AdamWConfig, grads, state, params, gnorm=None):
     """Returns (new_params in the params' dtypes, new_state, metrics).
+    `gnorm`: the gradient's norm when the caller has it (a mesh's
+    blocks: `parallel.sharding.global_norm`), else `global_norm(grads)`.
 
     The state's m, v and master leaves are updated IN PLACE, leaf by
     leaf (the reference returns new ones): at full width a second copy
     of the optimizer state would not fit beside the first. Each
     operation rounds as the reference's `upd` does."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = clip_scale(c, gnorm)
     lr = lr_at(c, step)
     b1c = 1 - torch.pow(c.beta1, step.float())

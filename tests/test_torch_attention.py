@@ -341,7 +341,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.flash_attention(qb, qb[:, :2].contiguous(),
                                qb[:, :2].contiguous())
-    # MLA's pair takes v at 128 only, in bfloat16 only, and no gradient
+    # MLA's pair takes v at 128 only, in bfloat16 only
     q2 = torch.zeros((1, 2, 8, 192), dtype=torch.bfloat16, device=cuda)
     v2 = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match=r"head dims \(Dk 192, Dv 64\)"):
@@ -352,8 +352,27 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fa_ops.flash_attention(q2[..., :24].contiguous(),
                                q2[..., :24].contiguous(),
                                v2[..., :16].contiguous())
-    with pytest.raises(NotImplementedError, match="queue 2, item 1"):
-        fa_ops.flash_attention(q2.clone().requires_grad_(), q2, v2)
+    # its gradient is the backward kernel's, against autograd through
+    # the plain versions (S 77: not a multiple of a tile); another Dk !=
+    # Dv pair has no backward either
+    qg, kg = (_t(_rand(60 + i, (1, 4, 77, 192)), "bfloat16").to(cuda)
+              for i in range(2))
+    vg = _t(_rand(62, (1, 4, 77, 128)), "bfloat16").to(cuda)
+    dog = _t(_rand(63, (1, 4, 77, 128)), "bfloat16").to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (qg, kg, vg)]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves), leaves, dog)
+    want = fa_ref.flash_attention_grads_plain(
+        *(t.float() for t in (qg, kg, vg, dog)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = float((g.float() - w).abs().max() / w.abs().max())
+        assert err <= TOL["bfloat16"], err
+    q3 = q2[..., :24].contiguous()
+    with pytest.raises(ValueError, match=r"\(Dk 24, Dv 16\)"):
+        fa_ops.flash_attention_bwd(q3, q3, v2[..., :16].contiguous(),
+                                   v2[..., :16].contiguous(),
+                                   v2[..., :16].contiguous(),
+                                   torch.zeros((1, 2, 8), device=cuda))
     qd = torch.zeros((1, 4, 64), device=cuda)
     kc = torch.zeros((1, 10, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="pos"):

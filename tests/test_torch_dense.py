@@ -197,6 +197,8 @@ def test_core_legacy_names_stay_importable_outside_all():
 EXPORTS = {
     "checkpoint": ("CheckpointManager",),
     "optim": ("AdamWConfig", "adamw_init", "adamw_apply"),
+    "parallel": ("ParallelCtx", "make_ctx", "ShardSpec", "make_shard_spec",
+                 "run_sharded"),
     "data": ("DataConfig", "SyntheticLM", "make_pipeline"),
     "configs": ("get_arch", "get_smoke", "get_shape", "ARCHS", "SHAPES"),
 }
@@ -244,10 +246,18 @@ def test_package_surfaces_work_from_the_package():
 
 
 def test_parallel_names_cover_the_reference():
+    import importlib
     ref = {n for n in dir(repro.parallel) if not n.startswith("_")
-           and n in ("ShardSpec", "make_shard_spec", "run_sharded")}
-    assert ref == {"ShardSpec", "make_shard_spec", "run_sharded"}
+           and not isinstance(getattr(repro.parallel, n), type(importlib))}
+    assert ref == {"ParallelCtx", "make_ctx", "ShardSpec",
+                   "make_shard_spec", "run_sharded"}
     assert ref <= set(repro_torch.parallel.__all__)
+    for name in ref:  # a dataclass has the reference's fields, in order
+        want, got = (getattr(m, name) for m in (repro.parallel,
+                                                repro_torch.parallel))
+        if hasattr(want, "__dataclass_fields__"):
+            assert list(want.__dataclass_fields__) == list(
+                got.__dataclass_fields__), name
 
 
 def test_run_sharded_is_the_engine_runner():
